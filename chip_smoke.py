@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on an NVIDIA H100, end to end.
+"""Drive the PyTorch/CUDA port's main paths on an NVIDIA H100, end to end.
 
     python3 chip_smoke.py [--batch 2048] [--max-iterations 1000] [--ptxas]
 
@@ -7,24 +7,32 @@ Needs one CUDA device of compute capability 9.0 and `nvcc`; with no device it
 exits non-zero at the first phase. It imports `torch` and `ipddp2tpu_torch`
 only. Phases, each printing one JSON line:
 
-  1. device    the card, its capability and its power limit;
-  2. build     compiles the backward-sweep kernel from the sources in this
-               checkout (all `nvcc` processes started together);
-  3. kernels   holds `backward_sweep_cuda` (float and double instantiation)
-               against its plain PyTorch version `sweep_plain` on a mid-solve
-               concar state at the main path's shapes and on a tiny nc=0
-               problem, with some lanes perturbed to fail the inertia test;
-               times the kernel and the plain version and computes the
-               kernel's lower bound on this card;
-  3b. graphs   the rollout replayed from a CUDA graph equals the eager one;
-  4. solve_f64 `solve_batch` on concar at its published size (T=100), B
-               instances (lane 0 = the reference's seed-1 instance), float64,
-               tolerance 1e-7, through the CUDA kernel; checks lane 0 against
-               the golden result and that >= 95 % of the lanes converge;
-  5. solve_f32 30 iterations of the same batch in float32 through the float
-               kernel; checks finite states and a fallen primal infeasibility;
-  6. phases    a timed split of a few mid-solve iterations into the solver's
-               phases (derivatives, costate, contraction, backward, forward).
+  device     the card, its capability and its power limit;
+  build      compiles every kernel from the sources in this checkout, all
+             `nvcc` processes started together: the backward sweep, the
+             forward kernels (concar, double integrator, a tiny nc=0 model)
+             and the chain probes;
+  kernels    holds every kernel against its plain PyTorch version on the
+             card, at the main path's shapes (a mid-solve concar state, B
+             lanes, T=100, K=8) and on the small models, with some lanes
+             perturbed so that flags of both values occur; times kernel and
+             plain version and computes each kernel's lower bound;
+  probes     the two chain probes, driven once at their size;
+  graphs     the rollout replayed from a CUDA graph equals the eager one;
+  solve_hybrid_f64  THE MAIN PATH: `solve_batch` on concar at its published
+             size (T=100), B instances (lane 0 = the reference's seed-1
+             instance), float64, tolerance 1e-7, hybrid line search (K=8
+             speculative step sizes, then backtracking) through the sweep,
+             forward-metrics and forward-trial kernels; checks lane 0
+             against the golden result and that >= 95 % of the lanes
+             converge; prints how the accepted step sizes are distributed;
+  solve_hybrid_f32  30 iterations of the same in float32;
+  solve_f64  the pure backtracking path (graph-replayed plain rollout,
+             sweep kernel) at 256 lanes, same gates;
+  backtrack_cuda  20 iterations of pure backtracking with the forward-trial
+             kernel as the rollout;
+  phases     a timed split of a few mid-solve iterations into the solver's
+             phases, with the backtracking and with the hybrid forward pass.
 
 Any failed assertion or exception ends the run with a non-zero exit code and
 without the last line. The last three lines are the kernels' JSON object,
@@ -47,10 +55,16 @@ from ipddp2tpu_torch.derivatives import (contract_dynamics_hessian,
                                          evaluate_derivatives,
                                          relax_constraints)
 from ipddp2tpu_torch import graphs
-from ipddp2tpu_torch.forward import forward_pass, rollout
-from ipddp2tpu_torch.models import concar
-from ipddp2tpu_torch.ops import backward_cuda
+from ipddp2tpu_torch.forward import (forward_pass, forward_pass_hybrid,
+                                     rollout)
+from ipddp2tpu_torch.models import concar, double_integrator
+from ipddp2tpu_torch.ops import backward_cuda, build, forward_cuda
+from ipddp2tpu_torch.ops import probe_chain
 from ipddp2tpu_torch.ops.backward_cuda import backward_sweep_cuda
+from ipddp2tpu_torch.ops.forward_cuda import (forward_metrics_cuda,
+                                              forward_metrics_plain,
+                                              forward_trial_cuda,
+                                              forward_trial_plain)
 from ipddp2tpu_torch.problem import Bounds
 from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
                                    iteration)
@@ -59,11 +73,19 @@ from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
 # memory rate, and the vector (non-tensor-core) rates the sweep can use.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
-# kernel-vs-plain tolerances on the gains, relative to each tensor's scale:
+# kernel-vs-plain tolerances, relative to each tensor's scale. Sweep gains:
 # both sides do the same arithmetic in another order (and the kernel with
 # fused multiply-adds), so they differ by rounding amplified by the KKT
-# systems' conditioning
+# systems' conditioning. Forward measures and trials: the same closed-loop
+# rollout of T dependent stages with fused multiply-adds and the device's
+# sin/cos/log on one side and PyTorch's on the other, the rounding fed back
+# through the gains at every stage and summed over T stages.
 TOL = {torch.float64: 1e-9, torch.float32: 1e-3}
+# ... and for the forward candidates that leave the interior (they fail the
+# boundary test and are never accepted): there slacks and duals run through
+# zero, where the feedback gains (Sigma = z / s, 1e8 and more) amplify one
+# rounding by up to that much, on either side
+TOL_OUTSIDE = {torch.float64: 1e-6, torch.float32: 1e-2}
 GAIN_NAMES = ("alpha", "beta", "psi", "omega", "chi_l", "zeta_l", "chi_u",
               "zeta_u")
 
@@ -87,7 +109,7 @@ def tiny_problem():
         return 2.0 * (x ** 2).sum() + 0.1 * x[0] * x[1]
 
     return Problem(T=6, nx=2, nu=3, nc=0, dynamics=dynamics, stage_cost=cost,
-                   terminal_cost=terminal)
+                   terminal_cost=terminal, device_model="tiny_nc0")
 
 
 def concar_batch(batch, dtype, device, seed):
@@ -221,16 +243,344 @@ def check_kernel(name, args, dims, rtol, time_reps):
     return fields
 
 
-def cast_state(s, dtype):
-    return SolverState(*(a.to(dtype) if a.is_floating_point() else a
-                         for a in s))
+def cast_tree(t, dtype):
+    """A (nested) tuple of tensors (a state, gains, bounds), or None, in
+    another floating type; integer and bool tensors stay."""
+    if t is None:
+        return None
+    if isinstance(t, torch.Tensor):
+        return t.to(dtype) if t.is_floating_point() else t
+    cast = [cast_tree(a, dtype) for a in t]
+    return type(t)(*cast) if hasattr(t, "_fields") else tuple(cast)
 
 
-def phase_split(problem, theta, bounds, s, options, iters):
+def forward_args(problem, theta, bounds, s, gains, options):
+    """What the forward kernels' wrappers take up to `tau`, from a state and
+    the gains of a backward pass."""
+    tau = torch.clamp(1.0 - s.mu, min=options.tau_min)
+    return [problem, theta, bounds.lower.contiguous(),
+            bounds.upper.contiguous(), tuple(gains), s.x, s.u, s.phi, s.zl,
+            s.zu, s.il, s.iu, s.mu, tau]
+
+
+def perturb_forward(args):
+    """Every 16th lane gets an infinite feedforward entry mid-horizon (its
+    candidates are not finite), another 16th a dual step that crosses zero
+    for the large step sizes (the boundary test fails there)."""
+    args = list(args)
+    gains = [g.clone() for g in args[4]]
+    lane = torch.arange(args[6].shape[0], device=args[6].device)
+    T = args[6].shape[1]
+    gains[0][lane % 16 == 5, T // 2, 0] = float("inf")              # alpha
+    gains[4][lane % 16 == 7, 1] = -10.0 * args[8][lane % 16 == 7, 1]  # chi_l
+    args[4] = tuple(gains)
+    return args
+
+
+def forward_flops(problem, lanes):
+    """Operations of `lanes` rollouts (a multiply-add counts two, a sin, cos
+    or log one): the affine rows, the boundary test, the barrier terms and
+    about 60 for the model's stage. The work does not depend on the data."""
+    nx, nu, nc = problem.nx, problem.nu, problem.nc
+    rows = 3 * nu + nc
+    per_stage = rows * (2 * nx + 2) + nx + 8 * nu + 4 * nc + 4 * nu + 60
+    return lanes * problem.T * per_stage
+
+
+def rel_err(a, b, where=None):
+    """max |a - b| over the finite entries of b (inside `where`), absolute
+    and relative to their largest magnitude; infinities must coincide."""
+    if where is not None:
+        a, b = a[where], b[where]
+    fin = torch.isfinite(b)
+    assert bool((torch.isfinite(a) == fin).all()), "finiteness differs"
+    assert bool((a[~fin] == b[~fin]).all()), "infinities differ"
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    err = float((a[fin] - b[fin]).abs().max())
+    return err, err / max(float(b[fin].abs().max()), 1e-300)
+
+
+TRIAL_NAMES = ("x", "u", "phi", "zl", "zu", "il", "iu", "c_raw")
+# K of the hybrid search on the main path: the JAX package's value for large
+# float64 batches, a starting value and not one tuned on this card
+SPECULATIVE = 8
+# lanes of the pure backtracking path, which is driven at a smaller size
+SMALL_BATCH = 256
+
+
+def boundary_edge(trial, args, tol):
+    """Lanes whose fraction-to-the-boundary test lies within rounding of its
+    threshold in the plain trial: |current - (1-tau) nominal| <= tol times
+    the scale of the quantity (for a slack, that of the control it is the
+    difference of). Their flag may flip between kernel and plain."""
+    x, u, phi, zl, zu, il, iu, c = trial
+    ubar, zlbar, zubar, ilbar, iubar, tau = (args[6], args[8], args[9],
+                                             args[10], args[11], args[13])
+    s = (1.0 - tau)[:, None, None]
+    edge = torch.zeros_like(tau, dtype=torch.bool)
+    for nom, cur, ref in ((ilbar, il, u), (iubar, iu, u), (zlbar, zl, zlbar),
+                          (zubar, zu, zubar)):
+        d = cur - s * nom
+        scale = torch.maximum(cur.abs().nan_to_num(posinf=0.0),
+                              ref.abs().nan_to_num(nan=0.0, posinf=0.0))
+        # (0 against 0, a dual at an absent bound, is exact on both sides)
+        near = torch.isfinite(d) & (d.abs() <= tol * scale) & (scale > 0)
+        edge |= near.flatten(1).any(dim=1)
+    return edge
+
+
+def check_forward(name, args, K, dtype, time_reps, need_both_flags):
+    """K3 and K4 against their plain versions on the same inputs.
+
+    float64: kernel against plain, relative to each tensor's scale: TOL on
+    the candidates that stay inside the boundary, TOL_OUTSIDE on the rest.
+    float32: the rollout feeds its rounding back through gains of 1e3 and
+    more for T stages, so two float32 evaluations of one trajectory part by
+    far more than rounding on the worst lanes, whatever computes them. Both
+    the kernel and the float32 plain version are therefore held against the
+    plain version in float64 on the same (float32) inputs, and the kernel
+    must come as close to it as the plain version does, within a factor 4,
+    or within the tolerances above. Returns the measured fields of the metrics and of the
+    trial kernel and the list of failed checks."""
+    problem = args[0]
+    B, device = args[6].shape[0], args[6].device
+    gammas = torch.tensor([0.5 ** i for i in range(K)], dtype=dtype,
+                          device=device)
+    tol = TOL[dtype]
+    wide = dtype != torch.float64
+    ref_args = ([args[0]] + [cast_tree(a, torch.float64) for a in args[1:]]
+                if wide else args)
+    ref_gammas = gammas.to(torch.float64)
+    same = lambda t: [a.to(dtype) if a.is_floating_point() else a for a in t]
+    failures = []
+
+    def held(what, per_kernel, per_plain, tol=tol):
+        """Record a failure unless every tensor's kernel error is within
+        `tol` or 4x the plain version's own error against float64."""
+        for key, rel in per_kernel.items():
+            limit = max(tol, 4.0 * per_plain.get(key, 0.0)) if wide else tol
+            if not rel <= limit:
+                failures.append(f"{name}: {what} {key}: {rel} > {limit}")
+
+    def errors(kernel, plain, ref, where, acc_kernel, acc_plain, key):
+        """Fold one tensor's errors against `ref` on `where` into the
+        per-tensor maxima; returns the absolute error."""
+        err, rel = rel_err(kernel, ref, where)
+        acc_kernel[key] = max(acc_kernel.get(key, 0.0), rel)
+        if wide:
+            acc_plain[key] = max(acc_plain.get(key, 0.0),
+                                 rel_err(plain, ref, where)[1])
+        return err
+
+    mk = forward_metrics_cuda(*args, gammas)
+    torch.cuda.synchronize()
+    mp = forward_metrics_plain(*args, gammas)
+    mr = (same(forward_metrics_plain(*ref_args, ref_gammas)) if wide
+          else mp)
+    fin_k, ftb_k, fin_p, ftb_p = mk[3], mk[4], mp[3], mp[4]
+    fin_r = fin_p & mr[3]
+
+    # K4 at every candidate step size: the trial, and which lanes sit on the
+    # boundary test's threshold there
+    edge = torch.zeros((B, K), dtype=torch.bool, device=device)
+    lanes = torch.arange(B, device=device)
+    mixed = [None] * 8
+    t_abs, t_kernel, t_plain, t_out_kernel, t_out_plain = 0.0, {}, {}, {}, {}
+    inside = fin_r & ftb_p & mr[4]
+    for k in range(K):
+        g = gammas[k].expand(B).contiguous()
+        tk = forward_trial_cuda(*args, g)
+        torch.cuda.synchronize()
+        tp = forward_trial_plain(*args, g)
+        tr = (same(forward_trial_plain(*ref_args, g.to(torch.float64)))
+              if wide else tp)
+        edge[:, k] = boundary_edge(tp, args, tol)
+        for tname, a, b, r in zip(TRIAL_NAMES, tk, tp, tr):
+            if b[0].numel() == 0:
+                continue
+            t_abs = max(t_abs, errors(a, b, r, inside[:, k], t_kernel,
+                                      t_plain, tname))
+            errors(a, b, r, fin_r[:, k], t_out_kernel, t_out_plain, tname)
+        pick = lanes % K == k
+        mixed = [r if m is None else
+                 torch.where(pick.reshape((-1,) + (1,) * (r.dim() - 1)), r, m)
+                 for m, r in zip(mixed, tr)]
+    held("trial", t_kernel, t_plain)
+    held("trial (all finite candidates)", t_out_kernel, t_out_plain,
+         TOL_OUTSIDE[dtype])
+    # one launch with a different step size on every lane
+    g_mixed = gammas[lanes % K].contiguous()
+    tk = forward_trial_cuda(*args, g_mixed)
+    torch.cuda.synchronize()
+    ok = inside[lanes, lanes % K]
+    held("mixed-gamma trial",
+         {n: rel_err(a, b, ok)[1]
+          for n, a, b in zip(TRIAL_NAMES, tk, mixed) if b[0].numel()},
+         t_plain)
+
+    # flags: finite everywhere; the boundary test away from its threshold
+    if not bool((fin_k == fin_p).all()):
+        failures.append(f"{name}: finite flags differ on "
+                        f"{int((fin_k != fin_p).sum())} candidates")
+    firm = fin_p & ~edge
+    if not bool((ftb_k == ftb_p)[firm].all()):
+        failures.append(f"{name}: boundary flags differ on "
+                        f"{int((ftb_k != ftb_p)[firm].sum())} firm "
+                        "candidates")
+    if need_both_flags and not (
+            int((~fin_p).sum()) > 0 and int((fin_p & ~ftb_p).sum()) > 0
+            and int((fin_p & ftb_p).sum()) > 0):
+        failures.append(f"{name}: need non-finite, boundary-failing and "
+                        "passing candidates")
+    # measures: inside the boundary; theta and J also on every finite
+    # candidate (L takes the log of a negative slack outside)
+    inside = inside & ~edge
+    m_abs, m_kernel, m_plain, m_out_kernel, m_out_plain = 0.0, {}, {}, {}, {}
+    for mname, i in (("theta", 0), ("L", 1), ("J", 2)):
+        m_abs = max(m_abs, errors(mk[i], mp[i], mr[i], inside, m_kernel,
+                                  m_plain, mname))
+        if mname != "L":
+            errors(mk[i], mp[i], mr[i], fin_r, m_out_kernel, m_out_plain,
+                   mname)
+    held("measure", m_kernel, m_plain)
+    held("measure (all finite candidates)", m_out_kernel, m_out_plain,
+         TOL_OUTSIDE[dtype])
+
+    counts = dict(candidates=B * K, not_finite=int((~fin_p).sum()),
+                  boundary_failing=int((fin_p & ~ftb_p).sum()),
+                  borderline=int((fin_p & edge).sum()),
+                  boundary_flags_differing_on_borderline=int(
+                      ((ftb_k != ftb_p) & fin_p & edge).sum()))
+    against = "plain float64" if wide else "plain"
+    metrics = dict(max_abs_err=m_abs, max_rel_err=max(m_kernel.values()),
+                   rel_err=m_kernel, rel_err_all_finite=m_out_kernel,
+                   against=against, inside=int(inside.sum()), **counts)
+    trial = dict(max_abs_err=t_abs, max_rel_err=max(t_kernel.values()),
+                 rel_err=t_kernel, rel_err_all_finite=t_out_kernel,
+                 against=against)
+    if wide:
+        metrics.update(plain_rel_err=m_plain,
+                       plain_rel_err_all_finite=m_out_plain)
+        trial.update(plain_rel_err=t_plain,
+                     plain_rel_err_all_finite=t_out_plain)
+    if time_reps:
+        size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        theta_leaves = [] if args[1] is None else list(args[1])
+        shared = [args[2], args[3], *args[4], *args[5:10], *theta_leaves]
+        for fields, kernel, plain, reads, writes, lanes_n in (
+                (metrics, lambda: forward_metrics_cuda(*args, gammas),
+                 lambda: forward_metrics_plain(*args, gammas),
+                 shared + list(args[10:14]) + [gammas], mk, B * K),
+                (trial, lambda: forward_trial_cuda(*args, g_mixed),
+                 lambda: forward_trial_plain(*args, g_mixed),
+                 shared + [g_mixed], tk, B)):
+            fields["ms"] = cuda_ms(kernel, time_reps)
+            fields["plain_ms"] = cuda_ms(plain, 1)
+            nbytes = size(reads) + size(writes)
+            flops = forward_flops(problem, lanes_n)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            fields.update(bytes=nbytes, flops=flops,
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations")
+    return metrics, trial, failures
+
+
+def check_probes(dtype, device, batch, steps, seed):
+    """P1 and P2 against their plain versions (and P1 in double against the
+    closed form); times and bounds like any kernel."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=gen, dtype=torch.float64)
+    c = 1.0000001
+    x0 = (0.5 + 0.5 * rand(8, batch)).to(device, dtype)
+    x1 = torch.stack([rand(batch), rand(batch), 0.3 + 0.6 * rand(batch),
+                      0.1 + 0.4 * rand(batch)], dim=1).to(device, dtype)
+    u = (rand(batch, steps, concar.NU) - 0.5).to(device, dtype)
+    tol = {torch.float64: 1e-13, torch.float32: 1e-5}[dtype]
+    out = {}
+    for name, kernel, plain, reads in (
+            ("mul_chain", lambda: probe_chain.mul_chain_cuda(x0, c, steps),
+             lambda: probe_chain.mul_chain_plain(x0, c, steps), [x0]),
+            ("dynamics_chain", lambda: probe_chain.dynamics_chain_cuda(x1, u),
+             lambda: probe_chain.dynamics_chain_plain(x1, u), [x1, u])):
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, rel = rel_err(got, ref)
+        assert rel <= tol, f"{name} {dtype}: {rel} > {tol}"
+        fields = dict(max_abs_err=err, max_rel_err=rel)
+        if name == "mul_chain" and dtype == torch.float64:
+            closed = float(((got - x0 * c ** steps) / got).abs().max())
+            assert closed <= tol, f"mul_chain against c**T: {closed}"
+            fields["rel_err_against_closed_form"] = closed
+        fields["ms"] = cuda_ms(kernel, 10)
+        fields["plain_ms"] = cuda_ms(plain, 1)
+        nbytes = sum(t.numel() * t.element_size() for t in reads + [got])
+        flops = (x0.numel() * steps if name == "mul_chain"
+                 else batch * steps * 30)        # RK2 step: about 30
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        fields.update(bytes=nbytes, flops=flops,
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+        out[name] = fields
+    # the probes' own path: one run at this size, counted
+    probe_chain.reset_launch_counts()
+    probe_chain.mul_chain_cuda(x0, c, steps)
+    probe_chain.dynamics_chain_cuda(x1, u)
+    torch.cuda.synchronize()
+    return out, dict(probe_chain.launch_counts)
+
+
+def reset_counts():
+    for mod in (backward_cuda, forward_cuda, probe_chain):
+        mod.reset_launch_counts()
+
+
+def read_counts():
+    return {**backward_cuda.launch_counts, **forward_cuda.launch_counts}
+
+
+def line_search_statistics(trace, K):
+    """From the solve's per-iteration trace: over all (iteration, lane)
+    pairs that accepted a step, how the accepted candidate index
+    i (step 2^-i) and the counted trials are distributed."""
+    stepped = torch.stack([t[0] for t in trace])
+    step = torch.stack([t[1] for t in trace])[stepped]
+    num_ls = torch.stack([t[2] for t in trace])[stepped]
+    index = torch.round(-torch.log2(step)).to(torch.int64)
+    n = max(int(index.numel()), 1)
+    by_index = torch.bincount(index.clamp(max=K), minlength=K + 1).tolist()
+    deep = (torch.stack([t[1] for t in trace]) < 0.5 ** (K - 1)) & stepped
+    return dict(
+        accepted_steps=int(index.numel()),
+        accepted_index_counts={(str(i) if i < K else f">={K}"): c
+                               for i, c in enumerate(by_index)},
+        share_full_step=by_index[0] / n,
+        share_below_2pow_minus_4=float((index > 4).sum()) / n,
+        share_below_the_candidates=by_index[K] / n,
+        iterations_with_a_step_below_the_candidates=int(
+            deep.any(dim=1).sum()),
+        num_ls_counts={(str(i) if i < 3 else ">=3"): c for i, c in enumerate(
+            torch.bincount(num_ls.to(torch.int64).clamp(max=3),
+                           minlength=4).tolist())})
+
+
+def phase_split(problem, theta, bounds, s, options, hybrid_options, iters):
     """Host-clock split of `iters` iterations from state `s`, synchronizing
-    after each phase (so the phases do not overlap as they may in a solve)."""
-    names = ("derivatives", "costate", "contraction", "backward", "forward")
+    after each phase (so the phases do not overlap as they may in a solve).
+    The forward pass is timed twice on the same gains: backtracking under
+    `options`, hybrid under `hybrid_options`; the state then advances by
+    `options`. Also returns on how many (iteration, lane) pairs that took
+    the step the two searches chose different ones (rounding at a
+    threshold). Timed alone, a search runs its trials on every lane; inside
+    an iteration the lanes that take no step are left out."""
+    names = ("derivatives", "costate", "contraction", "backward", "forward",
+             "forward_hybrid")
     acc = dict.fromkeys(names, 0.0)
+    differing = 0          # lanes where the two searches chose another step
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -251,11 +601,59 @@ def phase_split(problem, theta, bounds, s, options, iters):
         bw = timed("backward", lambda: backward_pass(
             problem, deriv, (c_rel, s.il, s.iu, s.phi, s.zl, s.zu), s.mu,
             s.reg_last, options, lam=lam, second=second))
-        timed("forward", lambda: forward_pass(
-            problem, theta, bounds, bw.gains, _nominal_trial(s), bw.dL, s.mu,
-            s.theta_curr, s.L_curr, s.min_primal_1, s.filter_pts, options))
-        s = iteration(problem, bounds, s, theta, options)
-    return {k: v / iters * 1e3 for k, v in acc.items()}
+        ls_args = (problem, theta, bounds, bw.gains, _nominal_trial(s),
+                   bw.dL, s.mu, s.theta_curr, s.L_curr, s.min_primal_1,
+                   s.filter_pts)
+        fw = timed("forward", lambda: forward_pass(*ls_args, options))
+        hy = timed("forward_hybrid",
+                   lambda: forward_pass_hybrid(*ls_args, hybrid_options))
+        # the speculative step sizes are exact powers of two, as halving is
+        assert bool((torch.frexp(hy.step_size).mantissa == 0.5).all()), \
+            "a hybrid step size is not a power of two"
+        s_next = iteration(problem, bounds, s, theta, options)
+        differing += int(((fw.step_size != hy.step_size)
+                          & (s_next.k > s.k)).sum())
+        s = s_next
+    return {k: v / iters * 1e3 for k, v in acc.items()}, differing
+
+
+def golden_gates(sol, batch):
+    """The repo's golden rule on lane 0 (tests/test_benchmarks.py:_check)
+    and the share of converged lanes."""
+    assert all(bool(torch.isfinite(t).all()) for t in (sol.x, sol.u))
+    obj0, it0 = float(sol.objective[0]), int(sol.iterations[0])
+    assert bool(sol.converged[0]), "seed-1 lane did not converge"
+    assert math.isclose(obj0, concar.SEED1_GOLDEN_OBJECTIVE, rel_tol=1e-6), \
+        obj0
+    g_it = concar.SEED1_GOLDEN_ITERATIONS
+    assert abs(it0 - g_it) <= max(3, int(0.1 * g_it) + 1), it0
+    solved = int(sol.converged.sum())
+    assert solved >= 0.95 * batch, f"only {solved}/{batch} converged"
+
+
+def solve_fields(sol, batch, wall):
+    iters = sol.iterations.to(torch.float64)
+    solved = int(sol.converged.sum())
+    return dict(
+        batch=batch, solved=solved, median_iterations=float(iters.median()),
+        max_iterations=int(iters.max()), seconds=wall,
+        ocps_per_second=solved / wall,
+        lane0=dict(objective=float(sol.objective[0]),
+                   iterations=int(sol.iterations[0]),
+                   converged=bool(sol.converged[0])),
+        status_counts={str(k): int((sol.status == k).sum())
+                       for k in sol.status.unique().tolist()})
+
+
+def timed_solve(*args, **kwargs):
+    """`solve_batch` with every launch count set to 0 just before and read
+    just after. Returns (solution, seconds, counts)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solve_batch(*args, **kwargs)
+    torch.cuda.synchronize()
+    return sol, time.perf_counter() - t0, read_counts()
 
 
 def main():
@@ -265,9 +663,13 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register / memory report")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernels and probes phases")
     a = ap.parse_args()
+    K = SPECULATIVE
+    started = time.perf_counter()
 
-    # ---- 1. device -------------------------------------------------------
+    # ---- device ----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -282,20 +684,31 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
     assert cap == (9, 0), f"built for sm_90a, found capability {cap}"
 
-    # ---- 2. build --------------------------------------------------------
+    # ---- build: every library in one parallel round ----------------------
     prob = concar.problem()
     tiny = tiny_problem()
+    di = double_integrator.problem()
     dims_c = dict(nx=prob.nx, nu=prob.nu, nc=prob.nc)
     dims_t = dict(nx=tiny.nx, nu=tiny.nu, nc=tiny.nc)
     t0 = time.perf_counter()
-    libs = backward_cuda.build(
-        [tuple(dims_c.values()), tuple(dims_t.values())], verbose=a.ptxas)
+    started_builds = (
+        [backward_cuda.start_build(*d.values(), verbose=a.ptxas)
+         for d in (dims_c, dims_t)]
+        + [forward_cuda.start_build(p, verbose=a.ptxas)
+           for p in (prob, di, tiny)]
+        + [probe_chain.start_build(verbose=a.ptxas)])
+    libs = build.finish_all(started_builds, verbose=a.ptxas)
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in libs])
 
-    # ---- 3. kernels ------------------------------------------------------
+    # ---- kernels ---------------------------------------------------------
     opts64 = Options(optimality_tolerance=1e-7,
                      max_iterations=a.max_iterations, backward_kernel="cuda")
+    hyb = dict(ls_speculative=K, ls_spec_continue=True,
+               forward_kernel="cuda")
+    hyb64 = Options(optimality_tolerance=1e-7,
+                    max_iterations=a.max_iterations, backward_kernel="cuda",
+                    **hyb)
     rtol, refine = opts64.kkt_residual_rtol, max(opts64.refine_steps, 1)
     theta, bounds, x1, u0 = concar_batch(a.batch, torch.float64, dev, a.seed)
     plain = Options(optimality_tolerance=1e-7, backward_kernel="torch")
@@ -306,14 +719,51 @@ def main():
     torch.cuda.synchronize()
     emit("mid_state", plain_iterations=10, seconds=time.perf_counter() - t0)
 
+    # a mid-solve state of the double integrator (64 lanes, varied starts)
+    gen = torch.Generator(device="cpu").manual_seed(a.seed + 2)
+    Bd = 64
+    di_x1 = torch.stack([0.5 * torch.rand(Bd, generator=gen,
+                                          dtype=torch.float64),
+                         torch.zeros(Bd, dtype=torch.float64)], dim=1).to(dev)
+    di_u0 = double_integrator.initial_controls(device=dev).expand(
+        Bd, di.T, di.nu)
+    di_bounds = Bounds(*(b.expand(Bd, di.T, di.nu)
+                         for b in double_integrator.bounds(device=dev)))
+    di_mid = initialize(di, None, di_bounds, di_x1, di_u0, plain)
+    for _ in range(4):
+        di_mid = iteration(di, di_bounds, di_mid, None, plain)
+
+    def gains_of(problem, th, s):
+        deriv = evaluate_derivatives(problem, th, s.x, s.u, s.phi)
+        c_rel = relax_constraints(problem, s.c_raw, s.mu)
+        return backward_pass(problem, deriv,
+                             (c_rel, s.il, s.iu, s.phi, s.zl, s.zu), s.mu,
+                             s.reg_last, plain).gains
+
     kernels = []
-    rows = (("backward_sweep_f32", torch.float32,
-             "ipddp2tpu/ops/backward_pallas.py:308"),
-            ("backward_sweep_f64", torch.float64,
-             "ipddp2tpu/ops/backward_pallas_df64.py:418"))
-    for kname, dtype, replaces in rows:
+    by_name = {}
+
+    def add_kernel(name, source, replaces, *field_sets):
+        main_f = field_sets[0]
+        row = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=0, launches_by_path={},
+            max_abs_err=max(f["max_abs_err"] for f in field_sets),
+            max_rel_err=max(f["max_rel_err"] for f in field_sets),
+            ms=main_f["ms"], plain_ms=main_f["plain_ms"],
+            bound_ms=main_f["bound_ms"], bound_by=main_f["bound_by"],
+            library_ms=None)
+        kernels.append(row)
+        by_name[name] = row
+
+    sfx = {torch.float32: "f32", torch.float64: "f64"}
+    sweep_replaces = {
+        torch.float32: "ipddp2tpu/ops/backward_pallas.py:308",
+        torch.float64: "ipddp2tpu/ops/backward_pallas_df64.py:418"}
+    for dtype in (torch.float64, torch.float32):
+        kname = f"backward_sweep_{sfx[dtype]}"
         th = concar.Theta(theta.obstacles.to(dtype))
-        args = perturb(sweep_inputs(prob, th, cast_state(mid, dtype)),
+        args = perturb(sweep_inputs(prob, th, cast_tree(mid, dtype)),
                        prob.nu)
         main_fields = check_kernel(kname, args, dict(dims_c, refine=refine),
                                    rtol, time_reps=10)
@@ -334,17 +784,70 @@ def main():
                                    dict(dims_t, refine=refine), rtol, 0)
         emit("kernels", name=kname, dtype=str(dtype), concar=main_fields,
              tiny_nc0=tiny_fields)
-        kernels.append(dict(
-            name=kname, route="cuda",
-            source="ipddp2tpu_torch/ops/csrc/backward_sweep.cu",
-            replaces=replaces, launches=0,
-            max_abs_err=max(main_fields["max_abs_err"],
-                            tiny_fields["max_abs_err"]),
-            max_rel_err=max(main_fields["max_rel_err"],
-                            tiny_fields["max_rel_err"]),
-            ms=main_fields["ms"], plain_ms=main_fields["plain_ms"],
-            bound_ms=main_fields["bound_ms"],
-            bound_by=main_fields["bound_by"], library_ms=None))
+        add_kernel(kname, "ipddp2tpu_torch/ops/csrc/backward_sweep.cu",
+                   sweep_replaces[dtype], main_fields, tiny_fields)
+
+        # the forward kernels: concar at the main path's shapes, the double
+        # integrator, and the tiny problem without constraints
+        s_c = cast_tree(mid, dtype)
+        b_c = cast_tree(bounds, dtype)
+        fargs = perturb_forward(forward_args(
+            prob, th, b_c, s_c, cast_tree(gains_of(prob, theta, mid), dtype),
+            plain))
+        m_c, t_c, bad_c = check_forward(f"forward/{sfx[dtype]}/concar",
+                                        fargs, K, dtype, 10,
+                                        need_both_flags=True)
+        s_d = cast_tree(di_mid, dtype)
+        dargs = perturb_forward(forward_args(
+            di, None, cast_tree(di_bounds, dtype), s_d,
+            cast_tree(gains_of(di, None, di_mid), dtype), plain))
+        m_d, t_d, bad_d = check_forward(
+            f"forward/{sfx[dtype]}/double_integrator", dargs, K, dtype, 0,
+            need_both_flags=False)
+        lo_t = st.u - st.il
+        hi_t = st.u + st.iu
+        hi_t[:, :, 2] = float("inf")
+        st_t = st._replace(iu=hi_t - st.u)
+        small = lambda *shape: 0.1 * (rnd(Bt, 6, *shape) - 0.5)
+        tgains = (small(3), small(3, 2), small(0), small(0, 2), small(3),
+                  small(3, 2), small(3), small(3, 2))
+        targs_f = forward_args(tiny, None, Bounds(lo_t, hi_t), st_t, tgains,
+                               plain)
+        m_t, t_t, bad_t = check_forward(f"forward/{sfx[dtype]}/tiny_nc0",
+                                        targs_f, K, dtype, 0,
+                                        need_both_flags=False)
+        emit("kernels", name=f"forward_metrics_{sfx[dtype]}",
+             dtype=str(dtype), K=K, concar=m_c, double_integrator=m_d,
+             tiny_nc0=m_t)
+        emit("kernels", name=f"forward_trial_{sfx[dtype]}", dtype=str(dtype),
+             concar=t_c, double_integrator=t_d, tiny_nc0=t_t)
+        failures = bad_c + bad_d + bad_t
+        assert not failures, "\n".join(failures)
+        src = "ipddp2tpu_torch/ops/csrc/forward_pass.cu"
+        add_kernel(f"forward_metrics_{sfx[dtype]}", src,
+                   "ipddp2tpu/ops/forward_pallas.py:625", m_c, m_d, m_t)
+        add_kernel(f"forward_trial_{sfx[dtype]}", src,
+                   "ipddp2tpu/ops/forward_pallas.py:716", t_c, t_d, t_t)
+
+    # ---- probes ----------------------------------------------------------
+    probe_rows = (("mul_chain", "scripts/tpu_dd_probe.py:49"),
+                  ("dynamics_chain", "scripts/tpu_dd_probe.py:98"))
+    for dtype in (torch.float32, torch.float64):
+        fields, counts = check_probes(dtype, dev, a.batch, prob.T, a.seed + 3)
+        emit("probes", dtype=str(dtype), batch=a.batch, steps=prob.T,
+             launches=counts, **fields)
+        for pname, replaces in probe_rows:
+            kname = f"{pname}_{sfx[dtype]}"
+            add_kernel(kname, "ipddp2tpu_torch/ops/csrc/probe_chain.cu",
+                       replaces, fields[pname])
+            assert counts[kname] > 0, f"probe run missed {kname}"
+            by_name[kname]["launches"] = counts[kname]
+            by_name[kname]["launches_by_path"] = {"probes": counts[kname]}
+    if a.kernels_only:
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print("chip_smoke: --kernels-only, stopping before the solves",
+              file=sys.stderr)
+        return 10
 
     # ---- graphs: the replayed rollout against the eager one --------------
     c_rel = relax_constraints(prob, mid.c_raw, mid.mu)
@@ -365,72 +868,114 @@ def main():
         trials[mode] = roll()
         torch.cuda.synchronize()
         timings[mode] = (time.perf_counter() - t0) * 1e3
-    diff = max(float((a - b).abs().nan_to_num(posinf=0.0).max())
-               for a, b in zip(trials["eager"], trials["graph"]))
+    diff = max(float((a_ - b_).abs().nan_to_num(posinf=0.0).max())
+               for a_, b_ in zip(trials["eager"], trials["graph"]))
     emit("graphs", rollout_eager_ms=timings["eager"],
          rollout_graph_ms=timings["graph"], max_abs_diff=diff)
     assert diff == 0.0, "graph replay differs from the eager rollout"
 
-    # ---- 4. solve_f64: the main path ------------------------------------
-    backward_cuda.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sol = solve_batch(prob, bounds, x1, u0, theta=theta, options=opts64)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(backward_cuda.launch_counts)
-    kernels[1]["launches"] = counts["backward_sweep_f64"]
-    assert counts["backward_sweep_f64"] > 0, "main path missed the f64 kernel"
-    iters = sol.iterations.to(torch.float64)
-    solved = int(sol.converged.sum())
-    obj0, it0 = float(sol.objective[0]), int(sol.iterations[0])
-    emit("solve_f64", batch=a.batch, T=prob.T, solved=solved,
-         median_iterations=float(iters.median()),
-         max_iterations=int(iters.max()), seconds=wall,
-         ocps_per_second=solved / wall,
-         sweep_launches=counts["backward_sweep_f64"],
-         sweep_share=counts["backward_sweep_f64"] * kernels[1]["ms"] * 1e-3
-         / wall,
-         lane0=dict(objective=obj0, iterations=it0,
-                    converged=bool(sol.converged[0])),
-         status_counts={str(k): int((sol.status == k).sum())
-                        for k in sol.status.unique().tolist()})
-    assert all(bool(torch.isfinite(t).all()) for t in (sol.x, sol.u))
-    # the repo's golden rule (tests/test_benchmarks.py:_check)
-    assert bool(sol.converged[0]), "seed-1 lane did not converge"
-    assert math.isclose(obj0, concar.SEED1_GOLDEN_OBJECTIVE, rel_tol=1e-6), \
-        obj0
-    g_it = concar.SEED1_GOLDEN_ITERATIONS
-    assert abs(it0 - g_it) <= max(3, int(0.1 * g_it) + 1), it0
-    assert solved >= 0.95 * a.batch, f"only {solved}/{a.batch} converged"
+    def record(path, counts, names):
+        for name in names:
+            assert counts[name] > 0, f"{path} missed the kernel {name}"
+            by_name[name]["launches_by_path"][path] = counts[name]
 
-    # ---- 5. solve_f32 ----------------------------------------------------
+    # ---- solve_hybrid_f64: the main path ---------------------------------
+    trace = []
+    sol, wall, counts = timed_solve(prob, bounds, x1, u0, theta=theta,
+                                    options=hyb64, trace=trace)
+    names64 = ("backward_sweep_f64", "forward_metrics_f64",
+               "forward_trial_f64")
+    record("solve_hybrid_f64", counts, names64)
+    for name in names64:
+        by_name[name]["launches"] = counts[name]
+    emit("solve_hybrid_f64", T=prob.T, K=K, **solve_fields(sol, a.batch, wall),
+         launches={k: v for k, v in counts.items() if v},
+         forward_passes=counts["forward_metrics_f64"],
+         backtracking_trials_below_the_candidates=(
+             counts["forward_trial_f64"] - counts["forward_metrics_f64"]),
+         line_search=line_search_statistics(trace, K))
+    golden_gates(sol, a.batch)
+
+    # ---- solve_hybrid_f32 ------------------------------------------------
     th32, b32, x32, u32 = concar_batch(a.batch, torch.float32, dev, a.seed)
-    opts32 = Options(optimality_tolerance=1e-7, max_iterations=30,
-                     backward_kernel="cuda")
-    s0 = initialize(prob, th32, b32, x32, u32, opts32)
+    hyb32 = Options(optimality_tolerance=1e-7, max_iterations=30,
+                    backward_kernel="cuda", **hyb)
+    s0 = initialize(prob, th32, b32, x32, u32, hyb32)
     p0 = s0.c_raw.abs().flatten(1).amax(dim=1)
-    backward_cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    sol32 = solve_batch(prob, b32, x32, u32, theta=th32, options=opts32)
-    torch.cuda.synchronize()
-    wall32 = time.perf_counter() - t0
-    counts = dict(backward_cuda.launch_counts)
-    kernels[0]["launches"] = counts["backward_sweep_f32"]
-    assert counts["backward_sweep_f32"] > 0, "f32 path missed the f32 kernel"
+    sol32, wall32, counts = timed_solve(prob, b32, x32, u32, theta=th32,
+                                        options=hyb32)
+    names32 = ("backward_sweep_f32", "forward_metrics_f32",
+               "forward_trial_f32")
+    record("solve_hybrid_f32", counts, names32)
+    for name in names32:
+        by_name[name]["launches"] = counts[name]
     finite = all(bool(torch.isfinite(t).all())
                  for t in (sol32.x, sol32.u, sol32.phi, sol32.zl, sol32.zu))
-    emit("solve_f32", batch=a.batch, iterations=30, seconds=wall32,
-         finite=finite, sweep_launches=counts["backward_sweep_f32"],
+    emit("solve_hybrid_f32", batch=a.batch, iterations=30, K=K,
+         seconds=wall32, finite=finite,
+         launches={k: v for k, v in counts.items() if v},
          primal_inf_initial_median=float(p0.median()),
          primal_inf_final_median=float(sol32.primal_inf.median()))
     assert finite and sol32.x.dtype == torch.float32
     assert float(sol32.primal_inf.median()) < float(p0.median())
 
-    # ---- 6. phase split of mid-solve f64 iterations ----------------------
-    split = phase_split(prob, theta, bounds, mid, opts64, iters=5)
-    emit("phases", ms_per_iteration=split, batch=a.batch)
+    # ---- solve_f64: pure backtracking, plain rollout, at fewer lanes -----
+    nb = min(SMALL_BATCH, a.batch)
+    th_s = concar.Theta(theta.obstacles[:nb])
+    b_s = Bounds(bounds.lower[:nb], bounds.upper[:nb])
+    sol_b, wall_b, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
+                                        theta=th_s, options=opts64)
+    record("solve_f64", counts, ("backward_sweep_f64",))
+    assert counts["forward_metrics_f64"] == 0 \
+        and counts["forward_trial_f64"] == 0
+    emit("solve_f64", T=prob.T, **solve_fields(sol_b, nb, wall_b),
+         sweep_launches=counts["backward_sweep_f64"])
+    golden_gates(sol_b, nb)
 
+    # the same path in float32, 30 iterations
+    opts32 = Options(optimality_tolerance=1e-7, max_iterations=30,
+                     backward_kernel="cuda")
+    sol_b32, wall_b32, counts = timed_solve(
+        prob, Bounds(*(x[:nb] for x in b32)), x32[:nb], u32[:nb],
+        theta=concar.Theta(th32.obstacles[:nb]), options=opts32)
+    record("solve_f32", counts, ("backward_sweep_f32",))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (sol_b32.x, sol_b32.u, sol_b32.phi, sol_b32.zl,
+                           sol_b32.zu))
+    emit("solve_f32", batch=nb, iterations=30, seconds=wall_b32,
+         finite=finite, sweep_launches=counts["backward_sweep_f32"],
+         primal_inf_initial_median=float(p0[:nb].median()),
+         primal_inf_final_median=float(sol_b32.primal_inf.median()))
+    assert finite and sol_b32.x.dtype == torch.float32
+    assert float(sol_b32.primal_inf.median()) < float(p0[:nb].median())
+
+    # ---- backtrack_cuda: K4 as the rollout of pure backtracking ----------
+    bt = Options(optimality_tolerance=1e-7, max_iterations=20,
+                 backward_kernel="cuda", forward_kernel="cuda")
+    sol_k, wall_k, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
+                                        theta=th_s, options=bt)
+    record("backtrack_cuda", counts, ("backward_sweep_f64",
+                                      "forward_trial_f64"))
+    assert counts["forward_metrics_f64"] == 0
+    ref20 = solve_batch(prob, b_s, x1[:nb], u0[:nb], theta=th_s,
+                        options=Options(optimality_tolerance=1e-7,
+                                        max_iterations=20,
+                                        backward_kernel="cuda"))
+    same_steps = bool((ref20.iterations == sol_k.iterations).all())
+    drift = float((ref20.x - sol_k.x).abs().max())
+    emit("backtrack_cuda", batch=nb, iterations=20, seconds=wall_k,
+         trial_launches=counts["forward_trial_f64"],
+         same_iteration_counts_as_graph_rollout=same_steps,
+         max_abs_state_difference_to_graph_rollout=drift)
+    assert bool(torch.isfinite(sol_k.x).all())
+
+    # ---- phases: split of mid-solve f64 iterations -----------------------
+    split, differing = phase_split(prob, theta, bounds, mid, opts64, hyb64,
+                                   iters=5)
+    emit("phases", ms_per_iteration=split, batch=a.batch, K=K,
+         stepping_lanes_where_hybrid_and_backtracking_differ=differing)
+
+    emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,18 @@ PyTorch, batch-first (every tensor carries a leading instance axis `B`), with
 the TPU kernels rewritten by hand as CUDA kernels. It imports `torch`, never
 `jax`, and nothing of the JAX package.
 
-So far the port covers the batched solve with the backtracking line search:
+So far the port covers the batched solve with the backtracking, the
+speculative and the hybrid line search:
 
     Problem, Bounds, Options, solve, solve_batch      — functional core
     models.concar, models.double_integrator           — benchmark problems
     ops.backward_cuda.backward_sweep_cuda             — the backward-sweep
                                                         kernel (f32 and f64)
+    ops.forward_cuda.forward_metrics_cuda,
+    ops.forward_cuda.forward_trial_cuda               — the line search's
+                                                        rollout kernels
+    ops.probe_chain                                   — chain probes of the
+                                                        card's arithmetic
 
 Entry points take an explicit `device`, default `"cuda"`, and raise when no
 GPU is present; pass `device="cpu"` to run the plain PyTorch path.

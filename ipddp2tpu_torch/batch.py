@@ -34,17 +34,18 @@ class BatchStats(NamedTuple):
 
 def solve_batch(problem: Problem, bounds: Bounds, x1: Tensor, u_init: Tensor,
                 theta=None, options: Optional[Options] = None,
-                device=None) -> Solution:
+                device=None, trace=None) -> Solution:
     """Solve a batch of instances of one problem family.
 
     All tensor arguments carry a leading batch axis (bounds included —
     instances may have different control limits, as in the randomized concar
     benchmark). `theta` is a pytree whose leaves carry the batch axis, or
     None. Runs on `device`; the default is the GPU, and without one this
-    raises (pass `device="cpu"` for the plain path).
+    raises (pass `device="cpu"` for the plain path). `trace`: see
+    `solve.run`.
     """
     return solve(problem, bounds, x1, u_init, theta=theta, options=options,
-                 device=device)
+                 device=device, trace=trace)
 
 
 def batch_stats(sol: Solution) -> BatchStats:

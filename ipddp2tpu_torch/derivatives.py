@@ -112,6 +112,16 @@ def _closures(problem: Problem):
         return vmap(problem.dynamics, in_dims=(0, 0, None, th_dim))(
             x, u, t, theta)
 
+    def stage(x, u, t, theta):
+        """One stage for every instance: (x_next, c_raw, cost) of
+        x [B,nx], u [B,nu] at stage t, as the forward kernels compute it."""
+        th_dim = None if theta is None else 0
+        over = lambda fn: vmap(fn, in_dims=(0, 0, None, th_dim))
+        c = (over(problem.constraints)(x, u, t, theta) if problem.nc
+             else x.new_zeros((x.shape[0], 0)))
+        return (over(problem.dynamics)(x, u, t, theta), c,
+                over(problem.stage_cost)(x, u, t, theta))
+
     def over_batch(fn):
         def call(xT, theta):
             return _as_dtype(
@@ -130,6 +140,7 @@ def _closures(problem: Problem):
         stage_cost=_over_batch_time(problem.stage_cost, 2),
         constraints=_over_batch_time(problem.eval_constraints, 2),
         dynamics=step,
+        stage=stage,
         terminal=over_batch(terminal),
         terminal_cost=over_batch(lT),
     )
@@ -138,6 +149,16 @@ def _closures(problem: Problem):
 def batched_dynamics(problem: Problem):
     """The instance-mapped dynamics step of `problem` (cached)."""
     return _closures(problem)["dynamics"]
+
+
+def batched_stage(problem: Problem):
+    """(x_next, c_raw, cost) of one stage, mapped over instances (cached)."""
+    return _closures(problem)["stage"]
+
+
+def batched_terminal_cost(problem: Problem):
+    """terminal_cost(x_T [B,nx], theta) -> [B] (cached)."""
+    return _closures(problem)["terminal_cost"]
 
 
 def _stages(problem: Problem, x: Tensor, u: Tensor):

@@ -11,7 +11,9 @@ The rollout applies the affine update rule from the backward pass
     x' = f(x, u)
 
 as a T-step host loop over `[B, ...]` tensors with the model's dynamics under
-`vmap` (on a GPU: captured once as a CUDA graph and replayed). The backtracking gamma <- gamma/2 line search is a host loop with
+`vmap` (on a GPU: captured once as a CUDA graph and replayed), or as one
+launch of the forward-trial kernel. The backtracking gamma <- gamma/2 line
+search is a host loop with
 per-lane masks applying, in order, the same acceptance gauntlet as the
 reference:
 
@@ -24,6 +26,17 @@ reference:
 
 Lanes that accepted keep their trial while the others go on halving; a lane
 that never accepts ends with the last trial it tried and status 7.
+
+The speculative search (`forward_pass_speculative`) evaluates the K largest
+step sizes 2^-0..2^-(K-1) of every lane at once and takes the first that the
+same gauntlet accepts; the hybrid search (`forward_pass_hybrid`) then goes on
+backtracking from 2^-K for the lanes where none was accepted, so it picks
+the step that pure backtracking picks. Both have two routes. The plain route
+rolls the K candidates out as a `[B*K]` batch of `rollout`. The kernel route
+(`ops/forward_cuda.py`) takes the measures of all candidates from one launch
+of the forward-metrics kernel, decides, and rolls the chosen step of every
+lane out with one launch of the forward-trial kernel, which also serves the
+backtracking trials. One function, `acceptance`, decides for every route.
 
 The filter is a fixed-capacity ring buffer of (theta_f, L_f) pairs per lane —
 empty slots hold +inf so they can never block.
@@ -41,6 +54,7 @@ from .backward import Gains
 from .derivatives import (batched_dynamics, evaluate_constraints,
                           evaluate_objective, relax_constraints)
 from .graphs import Graphed
+from .ops.forward_cuda import forward_metrics_cuda, forward_trial_cuda
 from .options import Options
 from .problem import Bounds, Problem
 
@@ -129,13 +143,51 @@ def _rollout_graphed(problem: Problem, theta_spec):
     return Graphed(flat)
 
 
+def forward_route(problem: Problem, options: Options, device) -> str:
+    """"kernel" or "plain" for this problem, these options and the device
+    the tensors lie on. `forward_kernel="cuda"` raises where the kernels
+    cannot run; "auto" takes them for the speculative and hybrid search on
+    a GPU when the problem names its device functions, and keeps the
+    graph-replayed plain rollout for pure backtracking."""
+    mode = options.forward_kernel
+    if mode == "cuda":
+        if device.type != "cuda":
+            raise RuntimeError(
+                'forward_kernel="cuda" needs tensors on a GPU, got '
+                f'{device}; pass forward_kernel="torch" for the plain '
+                "forward pass")
+        if problem.device_model is None:
+            raise ValueError(
+                'forward_kernel="cuda": the problem names no device '
+                "functions (Problem.device_model)")
+        return "kernel"
+    if (mode == "auto" and device.type == "cuda"
+            and problem.device_model is not None
+            and options.ls_speculative > 0):
+        return "kernel"
+    return "plain"
+
+
 def rollout(problem: Problem, theta, bounds: Bounds, gains: Gains,
             nominal_x, nominal_u, nominal_phi, nominal_zl, nominal_zu,
-            gamma) -> Trial:
+            gamma, route: str = "plain") -> Trial:
     """Closed-loop rollout of the affine update rule at per-lane step size
-    gamma `[B]`: a T-step host loop with the dynamics under `vmap`. It has
+    gamma `[B]`.
+
+    Plain route: a T-step host loop with the dynamics under `vmap`. It has
     no host synchronization, so on a GPU the whole chain of launches is
-    captured once into a CUDA graph and replayed."""
+    captured once into a CUDA graph and replayed. Kernel route: one launch
+    of the forward-trial kernel, with the nominal slacks recomputed from the
+    bounds (the trial does not depend on them)."""
+    if route == "kernel":
+        lo, hi = bounds.lower, bounds.upper
+        zero = torch.zeros_like(gamma)
+        x, u, phi, zl, zu, il, iu, c_raw = forward_trial_cuda(
+            problem, theta, lo, hi, tuple(gains), nominal_x, nominal_u,
+            nominal_phi, nominal_zl, nominal_zu, nominal_u - lo,
+            hi - nominal_u, zero, zero, gamma)
+        return Trial(x=x, u=u, c_raw=c_raw, il=il, iu=iu, phi=phi, zl=zl,
+                     zu=zu)
     if theta is None:
         leaves, spec = [], None
     else:
@@ -178,73 +230,100 @@ def barrier_lagrangian(problem: Problem, theta, bounds: Bounds,
 
 
 def filter_blocks(filter_pts: Tensor, theta, L) -> Tensor:
-    """True if (theta, L) is dominated by any filter point of its lane
-    (reference: src/forward_pass.jl:36). filter_pts: [B, CAP, 2], empty slots
-    +inf."""
-    return ((theta[:, None] >= filter_pts[:, :, 0])
-            & (L[:, None] >= filter_pts[:, :, 1])).any(dim=1)
+    """True where (theta, L), `[B, K]` candidates, is dominated by any
+    filter point of its lane (reference: src/forward_pass.jl:36).
+    filter_pts: [B, CAP, 2], empty slots +inf."""
+    return ((theta[:, :, None] >= filter_pts[:, None, :, 0])
+            & (L[:, :, None] >= filter_pts[:, None, :, 1])).any(dim=-1)
 
 
 def _all_finite(a: Tensor) -> Tensor:
     return torch.isfinite(a).flatten(1).all(dim=1)
 
 
+def _measures(problem: Problem, theta, bounds: Bounds, trial: Trial,
+              nominal: Trial, mu, tau):
+    """(theta, L, J, finite, ftb_ok), each [B], of a rolled-out trial: what
+    the forward-metrics kernel computes without writing the trial."""
+    finite = (_all_finite(trial.x) & _all_finite(trial.u)
+              & _all_finite(trial.phi) & _all_finite(trial.zl)
+              & _all_finite(trial.zu) & _all_finite(trial.c_raw))
+    frac_ok = fraction_to_boundary_ok(
+        trial, nominal.il, nominal.iu, nominal.zl, nominal.zu, tau)
+    c_rel = relax_constraints(problem, trial.c_raw, mu)
+    th = c_rel.abs().sum(dim=(1, 2))
+    L, J = barrier_lagrangian(problem, theta, bounds, trial.x, trial.u,
+                              c_rel, trial.phi, trial.il, trial.iu, mu)
+    return th, L, J, finite, frac_ok
+
+
+def acceptance(th, L, finite, ftb, gamma, dL, theta_prev, L_prev,
+               min_primal_1, filter_pts, options: Options):
+    """Step acceptance for `[B, K]` candidates (reference:
+    src/forward_pass.jl:36-49): filter, switching + Armijo, else sufficient
+    progress. `th`, `L`, `finite`, `ftb` are `[B, K]`, `gamma` broadcasts
+    against them (`[K]` shared, or `[B, 1]` per lane), the rest is `[B]`.
+    Returns (accept, counted, armijo, switching), each `[B, K]`. Every line
+    search of the package decides here."""
+    eps = torch.finfo(th.dtype).eps
+    col = lambda a: a[:, None]
+    blocked = filter_blocks(filter_pts, th, L)
+    switching = col(dL < 0.0) & (
+        torch.clamp(-gamma * col(dL), min=0.0) ** options.s_L
+        * gamma ** (1.0 - options.s_L)
+        > col(options.delta * theta_prev ** options.s_theta)
+    )
+    armijo = (L - col(L_prev) - col(10.0 * eps * L_prev.abs())
+              <= options.eta_L * gamma * col(dL))
+    suff = ((th <= col((1.0 - options.gamma_theta) * theta_prev))
+            | (L <= col(L_prev - options.gamma_L * theta_prev)))
+    use_armijo = (th <= col(min_primal_1)) & switching
+    decrease_ok = torch.where(use_armijo, armijo, suff)
+
+    accept = finite & ftb & ~blocked & decrease_ok
+    # The reference increments the line-search counter only on
+    # filter/acceptance failures, not rollout or boundary failures
+    # (reference: src/forward_pass.jl:37,49).
+    counted = finite & ftb & ~accept
+    return accept, counted, armijo, switching
+
+
 def forward_pass(problem: Problem, theta, bounds: Bounds, gains: Gains,
                  nominal: Trial, dL, mu, theta_prev, L_prev,
                  min_primal_1, filter_pts, options: Options,
-                 gamma0=None, skip=None, num_ls0=None) -> ForwardResult:
+                 gamma0=None, skip=None, num_ls0=None,
+                 route=None) -> ForwardResult:
     """Backtracking line search (reference: src/forward_pass.jl:1-57).
 
-    `gamma0`/`skip`/`num_ls0` are the hooks of the hybrid continuation (not
-    ported yet): start backtracking at `gamma0` instead of 1, run zero
-    trials where `skip` is True, and seed the trial counter."""
+    `gamma0`/`skip`/`num_ls0` are the hooks of the hybrid continuation
+    (`forward_pass_hybrid`): start backtracking at `gamma0` (a float)
+    instead of 1,
+    run zero trials where `skip` is True (the speculative pass already
+    accepted), and seed the trial counter. `route` ("kernel" or "plain")
+    overrides the choice `forward_route` makes from the options."""
     dtype, device = nominal.u.dtype, nominal.u.device
     B = nominal.u.shape[0]
     eps = torch.finfo(dtype).eps
     min_step = max(eps, options.ls_min_step)
     tau = torch.clamp(1.0 - mu, min=options.tau_min)
+    route = route or forward_route(problem, options, device)
 
     def try_step(gamma):
         trial = rollout(problem, theta, bounds, gains, nominal.x, nominal.u,
-                        nominal.phi, nominal.zl, nominal.zu, gamma)
-        finite = (_all_finite(trial.x) & _all_finite(trial.u)
-                  & _all_finite(trial.phi) & _all_finite(trial.zl)
-                  & _all_finite(trial.zu) & _all_finite(trial.c_raw))
-        frac_ok = fraction_to_boundary_ok(
-            trial, nominal.il, nominal.iu, nominal.zl, nominal.zu, tau)
-
-        c_rel = relax_constraints(problem, trial.c_raw, mu)
-        th = c_rel.abs().sum(dim=(1, 2))
-        L, J = barrier_lagrangian(problem, theta, bounds,
-                                  trial.x, trial.u, c_rel,
-                                  trial.phi, trial.il, trial.iu, mu)
-
-        # Step acceptance (reference: src/forward_pass.jl:36-49).
-        blocked = filter_blocks(filter_pts, th, L)
-        switching = (dL < 0.0) & (
-            torch.clamp(-gamma * dL, min=0.0) ** options.s_L
-            * gamma ** (1.0 - options.s_L)
-            > options.delta * theta_prev ** options.s_theta
-        )
-        armijo = (L - L_prev - 10.0 * eps * L_prev.abs()
-                  <= options.eta_L * gamma * dL)
-        suff = ((th <= (1.0 - options.gamma_theta) * theta_prev)
-                | (L <= L_prev - options.gamma_L * theta_prev))
-        use_armijo = (th <= min_primal_1) & switching
-        decrease_ok = torch.where(use_armijo, armijo, suff)
-
-        accept = finite & frac_ok & ~blocked & decrease_ok
-        # The reference increments the line-search counter only on
-        # filter/acceptance failures, not rollout or boundary failures
-        # (reference: src/forward_pass.jl:37,49).
-        counted = finite & frac_ok & ~accept
+                        nominal.phi, nominal.zl, nominal.zu, gamma,
+                        route=route)
+        th, L, J, finite, frac_ok = _measures(problem, theta, bounds, trial,
+                                              nominal, mu, tau)
+        one = lambda a: a[:, None]
+        accept, counted, armijo, switching = (a[:, 0] for a in acceptance(
+            one(th), one(L), one(finite), one(frac_ok), one(gamma), dL,
+            theta_prev, L_prev, min_primal_1, filter_pts, options))
         return trial, th, L, J, accept, counted, armijo, switching
 
     zeros = torch.zeros((B,), dtype=dtype, device=device)
     false = torch.zeros((B,), dtype=torch.bool, device=device)
-    gamma = (torch.ones_like(zeros) if gamma0 is None
-             else torch.as_tensor(gamma0, dtype=dtype,
-                                  device=device).expand(B).clone())
+    # a fill, not a copy from the host: no synchronization
+    gamma = torch.full_like(zeros, 1.0 if gamma0 is None else float(gamma0))
     num_ls = (torch.zeros((B,), dtype=torch.int32, device=device)
               if num_ls0 is None
               else torch.as_tensor(num_ls0, dtype=torch.int32,
@@ -280,3 +359,106 @@ def forward_pass(problem: Problem, theta, bounds: Bounds, gains: Gains,
     return ForwardResult(trial=trial, theta_next=th, L_next=L, objective=J,
                          step_size=gamma, num_ls=num_ls, status=status,
                          armijo_passed=armijo, switching=switching)
+
+
+@lru_cache(maxsize=32)
+def _candidate_steps(K: int, dtype, device) -> Tensor:
+    """2^-0 .. 2^-(K-1), descending: exact powers of two, like the halved
+    steps of the backtracking loop (a device `pow` may be an ulp off, so
+    they are built on the host). Made once per (K, dtype, device) and
+    shared: a copy to the device per call would synchronize; nobody writes
+    to it."""
+    return torch.tensor([0.5 ** i for i in range(K)], dtype=dtype,
+                        device=device)
+
+
+def forward_pass_speculative(problem: Problem, theta, bounds: Bounds,
+                             gains: Gains, nominal: Trial, dL, mu,
+                             theta_prev, L_prev, min_primal_1, filter_pts,
+                             options: Options, route=None) -> ForwardResult:
+    """Speculative line search: evaluate the step sizes gamma = 2^-i,
+    i < ls_speculative, of every lane at once and take the largest one the
+    acceptance gauntlet of `forward_pass` accepts. A lane where none passes
+    ends with status 7, the trial at step 1, and all its counted trials in
+    `num_ls` (so that the hybrid continuation counts on from there)."""
+    K = options.ls_speculative
+    dtype, device = nominal.u.dtype, nominal.u.device
+    B = nominal.u.shape[0]
+    tau = torch.clamp(1.0 - mu, min=options.tau_min)
+    gammas = _candidate_steps(K, dtype, device)
+    route = route or forward_route(problem, options, device)
+    kernel_args = (problem, theta, bounds.lower, bounds.upper, tuple(gains),
+                   nominal.x, nominal.u, nominal.phi, nominal.zl, nominal.zu,
+                   nominal.il, nominal.iu, mu, tau)
+
+    if route == "kernel":
+        th, L, J, finite, ftb = forward_metrics_cuda(*kernel_args, gammas)
+    else:
+        # the K candidates of a lane are K lanes of one plain rollout
+        rep = lambda a: a.repeat_interleave(K, dim=0)
+        bounds_k = Bounds(rep(bounds.lower), rep(bounds.upper))
+        nominal_k = Trial(*(rep(a) for a in nominal))
+        theta_k = None if theta is None else pytree.tree_map(rep, theta)
+        trials = rollout(problem, theta_k, bounds_k,
+                         Gains(*(rep(g) for g in gains)), nominal_k.x,
+                         nominal_k.u, nominal_k.phi, nominal_k.zl,
+                         nominal_k.zu, gammas.repeat(B))
+        th, L, J, finite, ftb = (a.reshape(B, K) for a in _measures(
+            problem, theta_k, bounds_k, trials, nominal_k, rep(mu),
+            rep(tau)))
+
+    accept, counted, armijo, switching = acceptance(
+        th, L, finite, ftb, gammas, dL, theta_prev, L_prev, min_primal_1,
+        filter_pts, options)
+    found = accept.any(dim=1)
+    # first (largest) accepted step; 0, the full step, where none was
+    idx = accept.to(torch.int8).argmax(dim=1)
+    before = torch.arange(K, device=device)[None, :] < idx[:, None]
+    num_ls = torch.where(found, (counted & before).sum(dim=1),
+                         counted.sum(dim=1)).to(torch.int32)
+    gamma_sel = gammas[idx]
+
+    if route == "kernel":
+        x, u, phi, zl, zu, il, iu, c_raw = forward_trial_cuda(
+            *kernel_args, gamma_sel)
+        trial = Trial(x=x, u=u, c_raw=c_raw, il=il, iu=iu, phi=phi, zl=zl,
+                      zu=zu)
+    else:
+        lanes = torch.arange(B, device=device)
+        trial = Trial(*(a.reshape((B, K) + a.shape[1:])[lanes, idx]
+                        for a in trials))
+    take = lambda a: a.gather(1, idx[:, None])[:, 0]
+    return ForwardResult(
+        trial=trial, theta_next=take(th), L_next=take(L), objective=take(J),
+        step_size=gamma_sel, num_ls=num_ls,
+        status=torch.where(found, 0, 7).to(torch.int32),
+        armijo_passed=take(armijo), switching=take(switching))
+
+
+def forward_pass_hybrid(problem: Problem, theta, bounds: Bounds,
+                        gains: Gains, nominal: Trial, dL, mu,
+                        theta_prev, L_prev, min_primal_1, filter_pts,
+                        options: Options, route=None,
+                        skip=None) -> ForwardResult:
+    """Hybrid line search: the K = ls_speculative largest candidates at
+    once, then backtracking goes on from 2^-K for the lanes where none was
+    acceptable (and that `skip`, a `[B]` mask of lanes whose result the
+    caller does not use, leaves in).
+
+    It accepts what pure backtracking (`forward_pass`) accepts: the largest
+    acceptable gamma of the same 2^-i sequence under the same tests; only
+    the schedule of the evaluations differs. The continuation runs no trial
+    (one host synchronization) unless some lane backtracks below 2^-K."""
+    spec = forward_pass_speculative(problem, theta, bounds, gains, nominal,
+                                    dL, mu, theta_prev, L_prev, min_primal_1,
+                                    filter_pts, options, route=route)
+    found = spec.status == 0
+    seq = forward_pass(problem, theta, bounds, gains, nominal, dL, mu,
+                       theta_prev, L_prev, min_primal_1, filter_pts, options,
+                       gamma0=0.5 ** options.ls_speculative,
+                       skip=found if skip is None else found | skip,
+                       num_ls0=spec.num_ls, route=route)
+    pick = lambda a, b: torch.where(_lane(found, a), a, b)
+    merged = [pick(a, b) for a, b in zip(spec[1:], seq[1:])]
+    return ForwardResult(
+        Trial(*(pick(a, b) for a, b in zip(spec.trial, seq.trial))), *merged)

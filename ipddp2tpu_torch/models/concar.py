@@ -75,7 +75,7 @@ def constraints(x, u, t, theta: Theta):
 def problem() -> Problem:
     return Problem(T=T, nx=NX, nu=NU, nc=NC, dynamics=dynamics,
                    stage_cost=stage_cost, terminal_cost=terminal_cost,
-                   constraints=constraints)
+                   constraints=constraints, device_model="concar")
 
 
 def bounds(f_lim, tau_lim, dtype=torch.float64, device=None) -> Bounds:

@@ -50,7 +50,8 @@ def constraints(x, u, t, theta):
 def problem() -> Problem:
     return Problem(T=T, nx=NX, nu=NU, nc=NC, dynamics=dynamics,
                    stage_cost=stage_cost, terminal_cost=terminal_cost,
-                   constraints=constraints)
+                   constraints=constraints,
+                   device_model="double_integrator")
 
 
 def bounds(dtype=torch.float64, device=None) -> Bounds:

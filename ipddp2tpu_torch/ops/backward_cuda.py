@@ -24,16 +24,12 @@ plain C interface, one per (nx, nu, nc), under `ops/_build/` at first use;
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "backward_sweep.cu"
-BUILD_DIR = _HERE / "_build"
+from . import build as _build
+
+SOURCE = _build.CSRC / "backward_sweep.cu"
 
 # launches made by the wrapper, per kernel name; a run that must show it
 # went through the kernel sets them to 0 before and reads them after
@@ -50,57 +46,19 @@ def reset_launch_counts():
         launch_counts[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (nvcc): cannot build "
-                           "the backward-sweep kernel")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def _lib_path(nx: int, nu: int, nc: int) -> Path:
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"backward_sweep_nx{nx}_nu{nu}_nc{nc}_{tag}.so"
-
-
 def start_build(nx: int, nu: int, nc: int, verbose: bool = False):
-    """Start `nvcc` for one (nx, nu, nc) without waiting. Returns
-    (process or None if already built, temporary path, final path). Several
-    builds started together run in parallel; `finish_build` waits."""
-    out = _lib_path(nx, nu, nc)
-    if out.exists():
-        return None, None, out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           f"-DNX={nx}", f"-DNU={nu}", f"-DNC={nc}"]
-    if verbose:
-        cmd.append("-Xptxas=-v")
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def finish_build(proc, tmp, out, verbose: bool = False) -> Path:
-    if proc is None:
-        return out
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {out.name}:\n{log}")
-    if verbose and log:
-        print(log, flush=True)
-    os.replace(tmp, out)
-    return out
+    """Start `nvcc` for one (nx, nu, nc) without waiting; `build.finish`
+    waits. Several builds started together run in parallel."""
+    return _build.start(f"backward_sweep_nx{nx}_nu{nu}_nc{nc}", SOURCE,
+                        defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}"),
+                        verbose=verbose)
 
 
 def build(dims, verbose: bool = False):
     """Build the libraries for every (nx, nu, nc) in `dims`, all `nvcc`
     processes started together. Raises on any failure."""
-    started = [start_build(*d, verbose=verbose) for d in dims]
-    return [finish_build(*s, verbose=verbose) for s in started]
+    return _build.finish_all([start_build(*d, verbose=verbose)
+                              for d in dims], verbose=verbose)
 
 
 def _library(nx: int, nu: int, nc: int):

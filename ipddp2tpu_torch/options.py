@@ -7,8 +7,8 @@ packages. The port keeps its own copy because it imports nothing of the JAX
 package.
 
 What differs is the set of values the kernel-dispatch knobs take on a GPU
-(`backward_kernel`, `forward_kernel`), and that the options the port does
-not implement yet are refused by `validate` instead of being
+(`backward_kernel`, `forward_kernel`: "cuda" where the JAX package says
+"pallas"), and that the options the port does not implement yet are refused by `validate` instead of being
 silently downgraded.
 
 The dataclass is frozen and hashable: the port caches its `torch.func`
@@ -116,8 +116,11 @@ class Options:
                                         # problems)
     ls_speculative: int = 0             # 0 = reference backtracking loop;
                                         # K > 0 = evaluate gammas 2^-0..2^-(K-1)
-                                        # in one batched rollout and pick the
-                                        # largest acceptable (not ported yet)
+                                        # of every lane at once (one launch
+                                        # of the forward-metrics kernel, or
+                                        # a [B*K] plain rollout) and pick
+                                        # the largest acceptable; alone, a
+                                        # lane with none fails (status 7)
     ls_spec_continue: bool = False      # hybrid line search: after the
                                         # ls_speculative candidates, CONTINUE
                                         # sequential backtracking from
@@ -128,12 +131,25 @@ class Options:
                                         # in the common case; the lockstep
                                         # tail loop only runs for instances
                                         # backtracking below 2^-K
-    forward_kernel: str = "auto"        # forward-pass dispatch. The port
-                                        # has the plain rollout only, so
-                                        # "auto", "xla" (the JAX package's
-                                        # name for its un-fused path) and
-                                        # "torch" all mean it; asking for a
-                                        # fused kernel raises
+    forward_kernel: str = "auto"        # forward-pass dispatch:
+                                        # "auto"  = the hand-written CUDA
+                                        #           forward kernels for the
+                                        #           speculative / hybrid
+                                        #           search when the tensors
+                                        #           are on a GPU and the
+                                        #           problem names its device
+                                        #           functions; the plain
+                                        #           (graph-replayed) rollout
+                                        #           for pure backtracking
+                                        # "cuda"  = always the kernels, the
+                                        #           backtracking trials too
+                                        #           (raises off-GPU, or for
+                                        #           a problem without device
+                                        #           functions)
+                                        # "torch" = always the plain rollout
+                                        # "xla"   = the JAX package's name
+                                        #           for its un-fused path:
+                                        #           the same as "torch"
     auto_tune: bool = True              # unused so far (no autotune
                                         # table for the GPU yet)
 
@@ -144,15 +160,13 @@ class Options:
             raise ValueError(
                 f"backward_kernel={self.backward_kernel!r}: expected "
                 "'auto', 'cuda' or 'torch'")
-        if self.forward_kernel not in ("auto", "xla", "torch"):
-            raise NotImplementedError(
-                f"forward_kernel={self.forward_kernel!r}: the fused forward "
-                "kernels (forward_metrics / forward_trial) belong to the "
-                "speculative line-search part of the port, not written yet")
-        if self.ls_speculative > 0:
-            raise NotImplementedError(
-                "ls_speculative > 0: the speculative / hybrid line search "
-                "is not ported yet (it comes with the forward kernels)")
+        if self.forward_kernel not in ("auto", "cuda", "torch", "xla"):
+            raise ValueError(
+                f"forward_kernel={self.forward_kernel!r}: expected 'auto', "
+                "'cuda', 'torch' or 'xla' (the JAX package's Pallas kernels "
+                "are the CUDA kernels here: 'cuda')")
+        if self.ls_speculative < 0:
+            raise ValueError(f"ls_speculative={self.ls_speculative}")
         if self.backward_mode != "scan":
             raise NotImplementedError(
                 f"backward_mode={self.backward_mode!r}: the associative-scan "

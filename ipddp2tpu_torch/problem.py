@@ -21,7 +21,10 @@ callables are written for ONE instance and ONE stage, on 1-D tensors,
 
 and must trace under `torch.func` (build vectors with `torch.stack`, no
 in-place ops, no `.item()`); the port maps them over (batch, time) with
-`torch.func.vmap`. All runtime data is batch-first: every tensor the solver
+`torch.func.vmap`. They are the definition of the problem. A kernel cannot
+call them, so a problem may name a header of hand-written device functions
+that compute the same (`device_model`), the counterpart of the JAX package's
+replay of the traced functions inside its Pallas kernels. All runtime data is batch-first: every tensor the solver
 handles carries a leading `B` axis, and B = 1 is the single instance.
 """
 
@@ -50,6 +53,13 @@ class Problem:
     compl_indices: tuple = ()           # constraint rows relaxed by mu
     contact: bool = False               # declares contact structure; steers
                                         # inertia_method="auto" to "bk"
+    device_model: Optional[str] = None  # stem of the header under
+                                        # ops/csrc/models/ that holds these
+                                        # stage functions once more as CUDA
+                                        # device functions (the forward
+                                        # kernels run the model inside);
+                                        # None = the problem has none and
+                                        # takes the plain forward pass
 
     def __post_init__(self):
         if self.nc > 0 and self.constraints is None:

@@ -31,7 +31,9 @@ from .backward import backward_pass, costate_scan
 from .derivatives import (DerivativeBundle, batched_dynamics,
                           contract_dynamics_hessian, evaluate_constraints,
                           evaluate_derivatives, relax_constraints)
-from .forward import Trial, barrier_lagrangian, forward_pass
+from .forward import (Trial, barrier_lagrangian, forward_pass,
+                      forward_pass_hybrid, forward_pass_speculative,
+                      forward_route)
 from .options import Options
 from .problem import Bounds, Problem, batch_bounds
 
@@ -170,13 +172,17 @@ def _augment_filter(filter_pts, filter_n, theta_curr, L_curr,
     return merged, filter_n + 1
 
 
-def resolve_options(options: Options, problem: Problem) -> Options:
+def resolve_options(options: Options, problem: Problem,
+                    device=None) -> Options:
     """Resolve problem-dependent "auto" knobs to concrete values and refuse
-    what the port does not implement yet. `inertia_method="auto"` -> "bk" on
-    problems with mu-relaxed complementarity rows or declared contact
-    structure (which then raises: the Bunch-Kaufman path is not ported yet),
-    else "ldl". Idempotent."""
+    what the port does not implement yet, or what cannot run on `device`
+    (`forward_kernel="cuda"` off the GPU or for a problem without device
+    functions). `inertia_method="auto"` -> "bk" on problems with mu-relaxed
+    complementarity rows or declared contact structure (which then raises:
+    the Bunch-Kaufman path is not ported yet), else "ldl". Idempotent."""
     options.validate()
+    if device is not None:
+        forward_route(problem, options, device)
     if options.inertia_method != "auto":
         return options
     is_contact = bool(problem.compl_indices) or problem.contact
@@ -189,8 +195,8 @@ def initialize(problem: Problem, theta, bounds: Bounds, x1, u_init,
     """Interior projection of the control guess, nominal rollout, dual init
     (reference: src/solver.jl:54-105, src/solve.jl:14-36). `x1` is [B, nx],
     `u_init` [B, T, nu], bounds [B, T, nu] (or [T, nu], shared)."""
-    options = resolve_options(options, problem)
     device = resolve_device(device)
+    options = resolve_options(options, problem, device)
     x1, u_init = x1.to(device), u_init.to(device)
     theta = _to_device(theta, device)
     B = x1.shape[0]
@@ -314,11 +320,11 @@ def _solution(state: SolverState) -> Solution:
 
 def solve(problem: Problem, bounds: Bounds, x1, u_init,
           theta=None, options: Optional[Options] = None,
-          return_state: bool = False, device=None):
+          return_state: bool = False, device=None, trace=None):
     """Solve a batch of OCPs: `x1` [B, nx], `u_init` [B, T, nu], bounds
     `[B, T, nu]` (or `[T, nu]`, shared), theta leaves `[B, ...]`. B = 1 is
     the single instance. Runs on `device` (default: the GPU; raises without
-    one).
+    one). `trace`, if given, is a list that `run` appends to.
 
     Equivalent entry point to the reference `solve!(solver, x1, u_init)`
     (reference: src/solve.jl:1-93).
@@ -329,7 +335,8 @@ def solve(problem: Problem, bounds: Bounds, x1, u_init,
     bounds = batch_bounds(_to_device(bounds, device), x1.shape[0])
     state = initialize(problem, theta, bounds, x1, u_init, options,
                        device=device)
-    state = run(problem, bounds, state, theta, options, device=device)
+    state = run(problem, bounds, state, theta, options, device=device,
+                trace=trace)
     sol = _solution(state)
     return (sol, state) if return_state else sol
 
@@ -339,22 +346,29 @@ def iteration(problem: Problem, bounds: Bounds, s: SolverState, theta,
     """One outer iteration on every lane: derivatives -> backward -> errors
     -> {converged | barrier update | forward + accept}. The building block
     of `run`, which masks it per lane."""
-    options = resolve_options(options, problem)
     device = resolve_device(device)
+    options = resolve_options(options, problem, device)
     s, theta = _to_device(s, device), _to_device(theta, device)
     bounds = batch_bounds(_to_device(bounds, device), s.x.shape[0])
     return _body(problem, bounds, theta, options, s)
 
 
 def run(problem: Problem, bounds: Bounds, state: SolverState, theta,
-        options: Options, k_limit=None, device=None) -> SolverState:
+        options: Options, k_limit=None, device=None,
+        trace=None) -> SolverState:
     """The main iteration loop on an initialized state.
 
     `k_limit` (default options.max_iterations) bounds the iteration counter
     for this call: resuming `run` on the returned state with a higher limit
-    continues the identical trajectory."""
-    options = resolve_options(options, problem)
+    continues the identical trajectory.
+
+    `trace`, if given, is a list to which every iteration appends
+    (stepped [B] bool, step_size [B], num_ls [B]): which lanes accepted a
+    step in that iteration, at which step size and after how many counted
+    line-search trials. The tensors stay on the device; appending them
+    costs no host synchronization."""
     device = resolve_device(device)
+    options = resolve_options(options, problem, device)
     state, theta = _to_device(state, device), _to_device(theta, device)
     bounds = batch_bounds(_to_device(bounds, device), state.x.shape[0])
     if k_limit is None:
@@ -367,6 +381,9 @@ def run(problem: Problem, bounds: Bounds, state: SolverState, theta,
         if not bool(active.any()):            # host sync, once per iteration
             break
         new = _body(problem, bounds, theta, options, state)
+        if trace is not None:
+            trace.append((active & (new.k > state.k), new.step_size,
+                          new.num_ls))
         state = select_state(active, new, state)
 
     hit_limit = (~state.converged & (state.status == 0)
@@ -430,11 +447,23 @@ def _body(problem: Problem, bounds: Bounds, theta, options: Options,
             L_curr=L_new, theta_curr=theta_new, objective=J,
             j=s.j + 1)
 
+    # lanes whose forward result the selects below throw away: they run no
+    # backtracking trial. (At a converged point, or at the optimum of a
+    # barrier subproblem, the step is zero and the line search would halve
+    # down to machine eps on rounding noise, with every lane rolled out
+    # again for each of its trials.)
+    unused = converged | backward_failed | barrier_branch
+
     def do_forward(s: SolverState):
-        fw = forward_pass(
-            problem, theta, bounds, bw.gains, _nominal_trial(s),
-            bw.dL, s.mu, s.theta_curr, s.L_curr, s.min_primal_1,
-            s.filter_pts, options)
+        ls_args = (problem, theta, bounds, bw.gains, _nominal_trial(s),
+                   bw.dL, s.mu, s.theta_curr, s.L_curr, s.min_primal_1,
+                   s.filter_pts, options)
+        if options.ls_speculative == 0:
+            fw = forward_pass(*ls_args, skip=unused)
+        elif options.ls_spec_continue:
+            fw = forward_pass_hybrid(*ls_args, skip=unused)
+        else:
+            fw = forward_pass_speculative(*ls_args)
 
         def accept(s: SolverState):
             t = fw.trial

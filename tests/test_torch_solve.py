@@ -115,6 +115,68 @@ def iterate_pair():
     return ref, out
 
 
+HYBRID = dict(ls_speculative=4, ls_spec_continue=True)
+
+
+@pytest.fixture(scope="module")
+def hybrid_iterate_pair():
+    """Five iterations with the hybrid line search in both packages (the
+    plain rollout route there and here)."""
+    jp, pp = short_concar()
+    inst = concar_instances(11, B)
+    bounds, x1, u0, theta = jax_concar_args(inst)
+    ref = j_solve_batch(jp, bounds, x1, u0, theta=theta, options=J.Options(
+        max_iterations=5, backward_kernel="xla", forward_kernel="xla",
+        **HYBRID, **OPTS))
+    pb, px1, pu0, pth = torch_concar_args(inst)
+    out = solve_batch(pp, pb, px1, pu0, theta=pth,
+                      options=P.Options(max_iterations=5, **HYBRID, **OPTS),
+                      device="cpu")
+    return ref, out
+
+
+@pytest.mark.parametrize("field", ["x", "u", "phi", "zl", "zu"])
+def test_hybrid_iterates_match_jax_after_5_iterations(field,
+                                                      hybrid_iterate_pair):
+    ref, out = hybrid_iterate_pair
+    np.testing.assert_allclose(tnp(getattr(out, field)),
+                               np.asarray(getattr(ref, field)),
+                               rtol=1e-8, atol=1e-8)
+
+
+def test_hybrid_counters_after_5_iterations(hybrid_iterate_pair,
+                                            iterate_pair):
+    ref, out = hybrid_iterate_pair
+    np.testing.assert_array_equal(tnp(out.iterations),
+                                  np.asarray(ref.iterations))
+    np.testing.assert_array_equal(tnp(out.status), np.asarray(ref.status))
+    np.testing.assert_allclose(tnp(out.mu), np.asarray(ref.mu), rtol=1e-12)
+    # and the hybrid search walks where the port's backtracking walks
+    np.testing.assert_allclose(tnp(out.x), tnp(iterate_pair[1].x),
+                               rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("options", [
+    dict(ls_speculative=4, ls_spec_continue=True),
+    dict(ls_speculative=8),
+], ids=["hybrid", "speculative"])
+def test_short_double_integrator_converges_like_backtracking(options):
+    """T=16 double integrator: the hybrid and the speculative search land
+    on the objective of the port's backtracking solve."""
+    import dataclasses
+    prob = dataclasses.replace(pdi.problem(), T=16)
+    bounds = P.Bounds(*(b[:16] for b in pdi.bounds()))
+    x1 = pdi.initial_state()[None]
+    u0 = pdi.initial_controls()[None, :16]
+    solve_ = lambda **kw: P.solve(prob, bounds, x1, u0,
+                                  options=P.Options(**OPTS, **kw),
+                                  device="cpu")
+    base, other = solve_(), solve_(**options)
+    assert bool(base.converged.all()) and bool(other.converged.all())
+    np.testing.assert_allclose(tnp(other.objective), tnp(base.objective),
+                               rtol=1e-6)
+
+
 def _check(sol, lane, golden_obj, golden_iters, *, obj_rtol=1e-6,
            iter_tol=0.1):
     """The golden rule of tests/test_benchmarks.py."""
@@ -230,12 +292,14 @@ def test_cs_error_with_zero_mu_has_no_nan():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(ls_speculative=4), NotImplementedError),
+    (dict(ls_speculative=-1), ValueError),
     (dict(backward_mode="parallel"), NotImplementedError),
     (dict(inertia_method="bk"), NotImplementedError),
     (dict(inertia_method="eigh"), NotImplementedError),
-    (dict(forward_kernel="pallas"), NotImplementedError),
+    (dict(forward_kernel="pallas"), ValueError),
     (dict(backward_kernel="pallas"), ValueError),
+    (dict(forward_kernel="cuda"), RuntimeError),      # no GPU asked for
+    (dict(forward_kernel="cuda", ls_speculative=4), RuntimeError),
 ])
 def test_unported_options_are_refused_not_downgraded(kwargs, err):
     prob = pdi.problem()

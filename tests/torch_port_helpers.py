@@ -39,7 +39,7 @@ def short_concar(T=T_SHORT):
     pp = P.Problem(T=T, nx=pconcar.NX, nu=pconcar.NU, nc=pconcar.NC,
                    dynamics=pconcar.dynamics, stage_cost=pconcar.stage_cost,
                    terminal_cost=pconcar.terminal_cost,
-                   constraints=pconcar.constraints)
+                   constraints=pconcar.constraints, device_model="concar")
     return jp, pp
 
 
