@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main paths on an NVIDIA H100, end to end.
 
     python3 chip_smoke.py [--batch 2048] [--max-iterations 1000] [--ptxas]
+                          [--kernels-only] [--log FILE]
 
 Needs one CUDA device of compute capability 9.0 and `nvcc`; with no device it
 exits non-zero at the first phase. It imports `torch` and `ipddp2tpu_torch`
@@ -9,14 +10,22 @@ only. Phases, each printing one JSON line:
 
   device     the card, its capability and its power limit;
   build      compiles every kernel from the sources in this checkout, all
-             `nvcc` processes started together: the backward sweep, the
-             forward kernels (concar, double integrator, a tiny nc=0 model)
-             and the chain probes;
+             `nvcc` processes started together: the backward sweep (concar,
+             double integrator, a tiny nc=0 model), the forward kernels of
+             the same three and the chain probes; prints the compiler's
+             registers, spills and stack of every kernel and the sweep's
+             launch geometry (lanes per instance, instances and shared
+             memory per block);
   kernels    holds every kernel against its plain PyTorch version on the
              card, at the main path's shapes (a mid-solve concar state, B
              lanes, T=100, K=8) and on the small models, with some lanes
              perturbed so that flags of both values occur; times kernel and
-             plain version and computes each kernel's lower bound;
+             plain version and computes each kernel's lower bound; for the
+             sweep also a crafted batch on which a pivot search spread over
+             lanes can go wrong (exact ties, a NaN diagonal, exact zero
+             pivots) in all three dimensions, batches that do not fill
+             their last block (B - 3 and 1), its time at 256 to 8192 lanes,
+             the time of preparing its inputs, and its cycle counters;
   probes     the two chain probes, driven once at their size;
   graphs     the rollout replayed from a CUDA graph equals the eager one;
   solve_hybrid_f64  THE MAIN PATH: `solve_batch` on concar at its published
@@ -60,11 +69,15 @@ from ipddp2tpu_torch.forward import (forward_pass, forward_pass_hybrid,
 from ipddp2tpu_torch.models import concar, double_integrator
 from ipddp2tpu_torch.ops import backward_cuda, build, forward_cuda
 from ipddp2tpu_torch.ops import probe_chain
-from ipddp2tpu_torch.ops.backward_cuda import backward_sweep_cuda
+from ipddp2tpu_torch.ops.backward_cuda import (backward_sweep_cuda,
+                                               launch_geometry,
+                                               prepare_sweep, sweep_prepared)
 from ipddp2tpu_torch.ops.forward_cuda import (forward_metrics_cuda,
                                               forward_metrics_plain,
                                               forward_trial_cuda,
                                               forward_trial_plain)
+from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_LANES, SECTIONS,
+                                               crafted_inputs)
 from ipddp2tpu_torch.problem import Bounds
 from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
                                    iteration)
@@ -90,8 +103,15 @@ GAIN_NAMES = ("alpha", "beta", "psi", "omega", "chi_l", "zeta_l", "chi_u",
               "zeta_u")
 
 
+LOG = None          # --log: a file that gets every phase line as well
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    if LOG is not None:
+        with open(LOG, "a") as f:
+            f.write(line + "\n")
 
 
 def tiny_problem():
@@ -195,7 +215,7 @@ def borderline(args, dims, rtol):
     return lo != hi
 
 
-def check_kernel(name, args, dims, rtol, time_reps):
+def check_kernel(name, args, dims, rtol, time_reps, need_both=True):
     """Kernel against plain on the same inputs; returns the measured fields."""
     dtype = args[18].dtype
     out_k = backward_sweep_cuda(*args, **dims, rtol=rtol)
@@ -207,7 +227,7 @@ def check_kernel(name, args, dims, rtol, time_reps):
     assert bool((fk == fp)[firm].all()), f"{name}: fail flags differ"
     assert bool((sk == sp)[firm & fp].all()), f"{name}: singular flags differ"
     ok = firm & ~fp
-    assert int(ok.sum()) > 0 and int(fp.sum()) > 0, \
+    assert not need_both or (int(ok.sum()) > 0 and int(fp.sum()) > 0), \
         f"{name}: need passing and failing lanes ({int(ok.sum())} pass)"
     max_abs, max_rel, per_out = 0.0, 0.0, {}
     for gname, a, b in list(zip(GAIN_NAMES, gk, gp)) + [("dL", dLk, dLp)]:
@@ -241,6 +261,57 @@ def check_kernel(name, args, dims, rtol, time_reps):
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations")
     return fields
+
+
+def check_crafted(name, dims, dtype, device, rtol):
+    """The crafted lanes (ties, NaN diagonal, zero pivots) through the
+    kernel: every flag as the plain version sets it and as the lane was
+    built to give, gains within tolerance on the passing lanes. Six lanes
+    never fill a block, so this is a ragged batch too."""
+    args = crafted_inputs(dims["nx"], dims["nu"], dims["nc"], dtype, device)
+    fields = check_kernel(name, args, dims, rtol, 0)
+    assert fields["lanes_borderline"] == 0, f"{name}: borderline lanes"
+    _, _, fail, sing = backward_sweep_cuda(*args, **dims, rtol=rtol)
+    want_fail = [False, False, True, True, True, False]
+    want_sing = [False, False, False, True, True, False]
+    assert fail.tolist() == want_fail, f"{name}: fail {fail.tolist()}"
+    assert sing.tolist() == want_sing, f"{name}: singular {sing.tolist()}"
+    return dict(lanes=list(CRAFTED_LANES), fail=fail.tolist(),
+                singular=sing.tolist(), max_rel_err=fields["max_rel_err"],
+                max_abs_err=fields["max_abs_err"])
+
+
+def sweep_scaling(args, dims, rtol, sizes, reps):
+    """The sweep's time by batch size (the main shapes' inputs cut or
+    repeated to B lanes), the time of preparing the inputs when every one of
+    them has to be copied, and the cycle counters at the full batch."""
+    B0 = args[18].shape[0]
+    times = {}
+    for B in sizes:
+        rep = -(-B // B0)
+        sized = [torch.cat([a] * rep)[:B].contiguous() for a in args]
+        times[str(B)] = cuda_ms(
+            lambda: backward_sweep_cuda(*sized, **dims, rtol=rtol), reps)
+        del sized
+    shape = {k: dims[k] for k in ("nx", "nu", "nc")}
+    # slices of wider tensors, as the Jacobians arrive from the derivatives
+    wide = [torch.cat([a, a], dim=-1)[..., :a.shape[-1]] for a in args[:19]]
+    prepare_ms = cuda_ms(lambda: prepare_sweep(*wide, **shape), reps)
+    prepared = prepare_sweep(*args[:19], **shape)
+    launch_ms = cuda_ms(lambda: sweep_prepared(
+        prepared, args[19], args[20], refine=dims["refine"], rtol=rtol), reps)
+    prof = torch.zeros(len(SECTIONS), dtype=torch.int64,
+                       device=args[0].device)
+    backward_sweep_cuda(*args, **dims, rtol=rtol, profile=prof)
+    torch.cuda.synchronize()
+    geo = launch_geometry(**shape)
+    blocks = -(-B0 // geo.instances_per_block)
+    T = args[11].shape[1]
+    return dict(ms_by_batch=times, prepare_ms_all_inputs_copied=prepare_ms,
+                launch_ms_on_prepared_inputs=launch_ms,
+                cycles_per_stage_of_a_block_first_warp={
+                    k: c / (T * blocks)
+                    for k, c in zip(SECTIONS, prof.tolist())})
 
 
 def cast_tree(t, dtype):
@@ -665,7 +736,11 @@ def main():
                     help="print the compiler's register / memory report")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernels and probes phases")
+    ap.add_argument("--log", default=None,
+                    help="also append every phase line to this file")
     a = ap.parse_args()
+    global LOG
+    LOG = a.log
     K = SPECULATIVE
     started = time.perf_counter()
 
@@ -690,16 +765,31 @@ def main():
     di = double_integrator.problem()
     dims_c = dict(nx=prob.nx, nu=prob.nu, nc=prob.nc)
     dims_t = dict(nx=tiny.nx, nu=tiny.nu, nc=tiny.nc)
+    dims_d = dict(nx=di.nx, nu=di.nu, nc=di.nc)
     t0 = time.perf_counter()
     started_builds = (
-        [backward_cuda.start_build(*d.values(), verbose=a.ptxas)
-         for d in (dims_c, dims_t)]
-        + [forward_cuda.start_build(p, verbose=a.ptxas)
+        [backward_cuda.start_build(*d.values(), verbose=True)
+         for d in (dims_c, dims_d, dims_t)]
+        + [forward_cuda.start_build(p, verbose=True)
            for p in (prob, di, tiny)]
-        + [probe_chain.start_build(verbose=a.ptxas)])
-    libs = build.finish_all(started_builds, verbose=a.ptxas)
+        + [probe_chain.start_build(verbose=True)])
+    logs = {}
+    libs = build.finish_all(started_builds, verbose=True, logs=logs)
+    if a.ptxas:
+        print("\n".join(logs.values()), flush=True)
+    geometry = {}
+    for d in (dims_c, dims_d, dims_t):
+        geo = launch_geometry(**d)
+        geometry["nx{nx}_nu{nu}_nc{nc}".format(**d)] = dict(
+            lanes_per_instance=geo.lanes,
+            instances_per_block=geo.instances_per_block,
+            threads_per_block=geo.threads,
+            smem_bytes_per_block={str(k): v
+                                  for k, v in geo.smem_bytes.items()})
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=[p.name for p in libs])
+         libraries=[p.name for p in libs],
+         ptxas={name: build.ptxas_report(log) for name, log in logs.items()},
+         sweep_geometry=geometry)
 
     # ---- kernels ---------------------------------------------------------
     opts64 = Options(optimality_tolerance=1e-7,
@@ -767,6 +857,19 @@ def main():
                        prob.nu)
         main_fields = check_kernel(kname, args, dict(dims_c, refine=refine),
                                    rtol, time_reps=10)
+        # batches that do not fill their last block
+        ragged = {
+            str(n): check_kernel(f"{kname}/B={n}", [x[:n] for x in args],
+                                 dict(dims_c, refine=refine), rtol, 0,
+                                 need_both=False)["max_rel_err"]
+            for n in (a.batch - 3, 1) if n >= 1}
+        crafted = {
+            label: check_crafted(f"{kname}/crafted/{label}",
+                                 dict(d, refine=refine), dtype, dev, rtol)
+            for label, d in (("concar", dims_c), ("double_integrator", dims_d),
+                             ("tiny_nc0", dims_t))}
+        scaling = sweep_scaling(args, dict(dims_c, refine=refine), rtol,
+                                (256, 1024, 2048, 8192), 5)
         gen = torch.Generator(device="cpu").manual_seed(a.seed + 1)
         rnd = lambda *shape: torch.rand(shape, generator=gen,
                                         dtype=torch.float64).to(dev, dtype)
@@ -783,9 +886,13 @@ def main():
         tiny_fields = check_kernel(kname + "/nc0", targs,
                                    dict(dims_t, refine=refine), rtol, 0)
         emit("kernels", name=kname, dtype=str(dtype), concar=main_fields,
-             tiny_nc0=tiny_fields)
+             tiny_nc0=tiny_fields, ragged_batch_max_rel_err=ragged,
+             crafted=crafted)
+        emit("sweep_scaling", name=kname, dtype=str(dtype), T=prob.T,
+             **scaling)
         add_kernel(kname, "ipddp2tpu_torch/ops/csrc/backward_sweep.cu",
-                   sweep_replaces[dtype], main_fields, tiny_fields)
+                   sweep_replaces[dtype], main_fields, tiny_fields,
+                   *crafted.values())
 
         # the forward kernels: concar at the main path's shapes, the double
         # integrator, and the tiny problem without constraints

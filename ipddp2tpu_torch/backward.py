@@ -36,9 +36,10 @@ attempt runs the whole batch, and only the lanes that were still failing
 take the new attempt's result.
 
 One sweep at fixed (mu, reg, delta_c) is `_run_pass`, the plain PyTorch
-version, or — on a GPU — the hand-written kernel
-`ops.backward_cuda.backward_sweep_cuda`, which computes the same function in
-one launch.
+version, or — on a GPU — the hand-written kernel of `ops.backward_cuda`,
+which computes the same function in one launch. Its inputs are prepared once
+per backward pass (`prepare_sweep`) and every attempt of the ladder is one
+launch on them (`sweep_prepared`): only reg and delta_c change in between.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from .derivatives import DerivativeBundle
-from .ops.backward_cuda import backward_sweep_cuda
+from .ops.backward_cuda import prepare_sweep, sweep_prepared
 from .ops.ldlt import ldlt_factor_pivoted, ldlt_solve_refined
 from .options import Options
 from .problem import Problem
@@ -227,11 +228,13 @@ def _use_cuda_kernel(options: Options, ref: Tensor) -> bool:
     return mode == "auto" and ldl and ref.is_cuda
 
 
-def sweep(problem: Problem, deriv: DerivativeBundle, nominal, second,
-          mu: Tensor, reg: Tensor, delta_c: Tensor, options: Options):
-    """One backward-sweep attempt at fixed per-instance (reg, delta_c):
-    the CUDA kernel on a GPU (or whenever `backward_kernel="cuda"`, which
-    raises for CPU tensors), else the plain version `_run_pass`."""
+def sweep_attempts(problem: Problem, deriv: DerivativeBundle, nominal,
+                   second, mu: Tensor, options: Options):
+    """The backward sweep of one backward pass as a function
+    `attempt(reg, delta_c)` of the per-instance regularization: the CUDA
+    kernel on a GPU (or whenever `backward_kernel="cuda"`, which raises for
+    CPU tensors), else the plain version `_run_pass`. For the kernel, the
+    inputs that no attempt changes are checked and packed here, once."""
     if options.quasi_newton:
         second = None
     if options.backward_kernel == "cuda" and not mu.is_cuda:
@@ -239,21 +242,26 @@ def sweep(problem: Problem, deriv: DerivativeBundle, nominal, second,
             'backward_kernel="cuda" needs tensors on a GPU, got '
             f"{mu.device}; pass backward_kernel=\"torch\" for the plain "
             "sweep")
-    if _use_cuda_kernel(options, mu):
-        c_rel, il, iu, phi, zl, zu = nominal
-        B, T, nz = mu.shape[0], problem.T, problem.nx + problem.nu
-        sec = (second if second is not None
-               else mu.new_zeros((B, T, nz, nz)))
-        gains_t, dL, fail, singular = backward_sweep_cuda(
-            deriv.fx, deriv.fu, deriv.lx, deriv.lu, deriv.lxx, deriv.lux,
-            deriv.luu, deriv.cx, deriv.cu, sec, c_rel, il, iu, phi, zl, zu,
-            deriv.lTx, deriv.lTxx, mu, reg, delta_c,
-            nx=problem.nx, nu=problem.nu, nc=problem.nc,
-            refine=max(options.refine_steps, 1),
+    if not _use_cuda_kernel(options, mu):
+        return lambda reg, delta_c: _run_pass(
+            problem, deriv, nominal, mu, reg, delta_c, options,
+            second=second)
+    c_rel, il, iu, phi, zl, zu = nominal
+    B, T, nz = mu.shape[0], problem.T, problem.nx + problem.nu
+    sec = second if second is not None else mu.new_zeros((B, T, nz, nz))
+    prepared = prepare_sweep(
+        deriv.fx, deriv.fu, deriv.lx, deriv.lu, deriv.lxx, deriv.lux,
+        deriv.luu, deriv.cx, deriv.cu, sec, c_rel, il, iu, phi, zl, zu,
+        deriv.lTx, deriv.lTxx, mu,
+        nx=problem.nx, nu=problem.nu, nc=problem.nc)
+
+    def attempt(reg, delta_c):
+        gains_t, dL, fail, singular = sweep_prepared(
+            prepared, reg, delta_c, refine=max(options.refine_steps, 1),
             rtol=options.kkt_residual_rtol)
         return Gains(*gains_t), dL, fail, singular
-    return _run_pass(problem, deriv, nominal, mu, reg, delta_c, options,
-                     second=second)
+
+    return attempt
 
 
 def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
@@ -279,9 +287,8 @@ def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
             second = second + torch.einsum("bti,btijk->btjk", lam[:, 1:],
                                            deriv.fH)
 
-    def attempt(reg, delta_c):
-        return sweep(problem, deriv, nominal, second, mu, reg, delta_c,
-                     options)
+    # what no attempt changes is checked and packed once, before the ladder
+    attempt = sweep_attempts(problem, deriv, nominal, second, mu, options)
 
     def next_reg(reg):
         # IPOPT-style ladder (reference: src/inertia_correction.jl:268-273).

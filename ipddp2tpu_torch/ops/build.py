@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -71,30 +72,59 @@ def start(stem: str, source: Path, defines=(), depends=(),
     return Build(proc, tmp, out)
 
 
-def finish(build: Build, verbose: bool = False) -> Path:
+def finish(build: Build, verbose: bool = False, logs=None) -> Path:
     """Wait for a started build; raises with the compiler's output if it
-    failed."""
+    failed. A dict `logs` receives the compiler's output by library name
+    (with `verbose` that is the `-Xptxas -v` report)."""
     if build.proc is None:
         return build.out
     log, _ = build.proc.communicate()
     if build.proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({build.proc.returncode}) building "
                            f"{build.out.name}:\n{log}")
-    if verbose and log:
+    if logs is not None:
+        logs[build.out.name] = log
+    elif verbose and log:
         print(log, flush=True)
     os.replace(build.tmp, build.out)
     return build.out
 
 
-def finish_all(builds, verbose: bool = False):
+def finish_all(builds, verbose: bool = False, logs=None):
     """Wait for every started build, then raise the first failure: no
     `nvcc` process is left running."""
     paths, first = [], None
     for b in builds:
         try:
-            paths.append(finish(b, verbose=verbose))
+            paths.append(finish(b, verbose=verbose, logs=logs))
         except RuntimeError as e:
             first = first or e
     if first is not None:
         raise first
     return paths
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spills, stack and static shared memory of every kernel in
+    an `nvcc -Xptxas -v` log, by (demangled enough) kernel name and type."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([fd])E", line)
+        if m:
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(s.group(1)) if s else 0
+    return out

@@ -15,9 +15,9 @@
 // The double instantiation is native FP64: the double-single arithmetic of
 // the TPU kernel is not carried over. The Pallas grid (batch tiles, K, T)
 // with the state carried in scratch from grid step to grid step becomes a
-// loop over t inside a thread. Both kernels share one stage body
-// (`rollout<T, EMIT>`), as the Pallas source shares `_kernel_body`. Their
-// plain versions are `forward_metrics_plain` / `forward_trial_plain` in
+// loop over t inside a thread (K3) or a group of lanes (K4). Both kernels
+// share the row arithmetic and the model call, as the Pallas source shares
+// `_kernel_body`. Their plain versions are `forward_metrics_plain` / `forward_trial_plain` in
 // `ops/forward_cuda.py`, which walk the stages in this order.
 //
 // Per stage, from x = xbar[0]:
@@ -33,20 +33,35 @@
 //   ftb    &= no entry with (1 - tau) * nominal > current on il, iu, zl, zu
 // and after the last stage J, L += model::terminal(x_T).
 //
-// Bound on this card: bytes. Each instance reads about 250 values per stage
-// once (the eight gains dominate: 136 of them) and the arithmetic is a few
+// Bound on this card: bytes. Each instance reads about 230 values per stage
+// once (the eight gains dominate: 170 of them) and the arithmetic is a few
 // hundred operations per stage, so the least time is the inputs over the
-// memory rate. This first version does not reach it, and says why: one
-// thread owns one (instance, candidate) and reads the solver's dense
-// [B, T, ...] tensors as they are, so neighbouring threads are K lanes of
-// one instance (which read the same addresses: one transaction, broadcast)
-// and then instances T*n values apart (which do not coalesce), and every
-// load sits in the chain of T dependent stages with nothing prefetched.
-// A faster layout: gains stored [T, n, B] (instance fastest) or staged
-// through shared memory by the whole block one stage ahead (cp.async / TMA
-// on a [B, T*n] view), so that a warp's loads coalesce and overlap the
-// model's sin/cos/log; and the K candidates of an instance sharing one copy
-// of its gains in shared memory.
+// memory rate.
+//
+// The trial kernel (K4) is laid out for that bound. A GROUP of GT lanes of
+// a warp owns an instance (GT = 16 for concar, two instances a warp, 1,024
+// warps at B = 2048 where one thread per instance gave 64). The rows of the
+// update law, stacked u | phi | zl | zu (34 for concar), are dealt round
+// over the lanes; a row is `bar + gamma * ff + fb . dx` from 2 + nx values
+// that are contiguous with the next lane's, so a group's loads cover whole
+// runs of an instance's stage instead of 32 scattered addresses a warp.
+// The addresses of a stage's inputs do not depend on the state x, so every
+// lane loads its rows of stage t+1 into a second set of registers before
+// stage t's model runs: the loads of a whole stage are in flight during the
+// chain dx -> nx multiply-adds -> gather of u by shuffles -> model::stage.
+// The model is evaluated by every lane of the group on the gathered u (the
+// same time as once, and x', c need no broadcast). Every value is stored by
+// the lane that holds it: a row by its owner (with il, iu beside a u row),
+// x and c by the first lanes. A batch that does not fill its last block is
+// padded by clamping the instance and masking the stores.
+//
+// The metrics kernel (K3) keeps its first layout: one thread owns one
+// (instance, candidate) and reads the solver's dense [B, T, ...] tensors as
+// they are; neighbouring threads are the K candidates of one instance, which
+// read the same addresses (one transaction, broadcast). What is left for it:
+// the K candidates of an instance sharing one copy of its gains in shared
+// memory, loaded one stage ahead like here. Both kernels use one `affine`
+// row, one `model::stage` and the same flag rules.
 //
 // Plain IEEE arithmetic (no fast-math): comparisons with NaN must be false,
 // inf - inf must be NaN, and log is only taken where the bound is finite.
@@ -73,7 +88,17 @@ static_assert(model::NX_ == NX && model::NU_ == NU && model::NC_ == NC,
 
 constexpr int NC1 = NC > 0 ? NC : 1;         // no zero-length arrays
 constexpr int NT_METRICS = 64;               // threads per block
-constexpr int NT_TRIAL = 32;                 // one warp: B threads in all
+constexpr int NT_TRIAL = 128;                // 4 warps of instance groups
+constexpr int NR = 3 * NU + NC;              // rows of the update law
+constexpr int pow2_at_least(int n) {
+    int g = 1;
+    while (g < n) g *= 2;
+    return g;
+}
+// lanes that own one instance in the trial kernel, and rows a lane holds
+constexpr int GT = pow2_at_least(NR) < 16 ? pow2_at_least(NR) : 16;
+constexpr int KR = (NR + GT - 1) / GT;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct FwdArgs {
     // inputs, dense row-major
@@ -103,13 +128,13 @@ __device__ __forceinline__ T affine(const T bar, const T gamma, const T ff,
     return bar + gamma * ff + acc;
 }
 
-// The rollout of instance b at step size gamma. EMIT: write the trial;
-// otherwise reduce to the measures.
-template <typename T, bool EMIT>
-__device__ __forceinline__ void rollout(const FwdArgs& a, const int b,
-                                        const int Tn, const T gamma,
-                                        T& th_out, T& L_out, T& J_out,
-                                        bool& fin_out, bool& ftb_out) {
+// The rollout of instance b at step size gamma, reduced to the line
+// search's measures.
+template <typename T>
+__device__ __forceinline__ void rollout_metrics(const FwdArgs& a, const int b,
+                                                const int Tn, const T gamma,
+                                                T& th_out, T& L_out, T& J_out,
+                                                bool& fin_out, bool& ftb_out) {
     const T* __restrict__ lo = (const T*)a.lo;
     const T* __restrict__ hi = (const T*)a.hi;
     const T* __restrict__ xbar = (const T*)a.xbar;
@@ -130,8 +155,8 @@ __device__ __forceinline__ void rollout(const FwdArgs& a, const int b,
     const T* theta = a.theta == nullptr
         ? nullptr : (const T*)a.theta + (size_t)b * model::THETA_DIM;
 
-    const T mu = EMIT ? T(0) : ((const T*)a.mu)[b];
-    const T s_ftb = EMIT ? T(0) : T(1) - ((const T*)a.tau)[b];
+    const T mu = ((const T*)a.mu)[b];
+    const T s_ftb = T(1) - ((const T*)a.tau)[b];
 
     T x[NX], dx[NX], xn[NX], u[NU], phi[NC1], c[NC1];
     const T* xb = xbar + (size_t)b * (Tn + 1) * NX;
@@ -159,19 +184,13 @@ __device__ __forceinline__ void rollout(const FwdArgs& a, const int b,
             // +inf at an absent bound, like plain u - (-inf)
             const T ilj = uj - loj, iuj = hij - uj;
             u[j] = uj;
-            if (EMIT) {
-                ((T*)a.u)[r] = uj;   ((T*)a.zl)[r] = zlj;
-                ((T*)a.zu)[r] = zuj; ((T*)a.il)[r] = ilj;
-                ((T*)a.iu)[r] = iuj;
-            } else {
-                fin = fin && finite_(uj) && finite_(zlj) && finite_(zuj);
-                ftb = ftb && !(s_ftb * ilbar[r] > ilj)
-                          && !(s_ftb * iubar[r] > iuj)
-                          && !(s_ftb * zlbar[r] > zlj)
-                          && !(s_ftb * zubar[r] > zuj);
-                logsum_l += finite_(loj) ? log_(ilj) : T(0);
-                logsum_u += finite_(hij) ? log_(iuj) : T(0);
-            }
+            fin = fin && finite_(uj) && finite_(zlj) && finite_(zuj);
+            ftb = ftb && !(s_ftb * ilbar[r] > ilj)
+                      && !(s_ftb * iubar[r] > iuj)
+                      && !(s_ftb * zlbar[r] > zlj)
+                      && !(s_ftb * zubar[r] > zuj);
+            logsum_l += finite_(loj) ? log_(ilj) : T(0);
+            logsum_u += finite_(hij) ? log_(iuj) : T(0);
         }
 #pragma unroll
         for (int j = 0; j < NC; ++j) {
@@ -182,43 +201,108 @@ __device__ __forceinline__ void rollout(const FwdArgs& a, const int b,
         T cost;
         model::stage(x, u, t, theta, xn, c, cost);
 
-        if (EMIT) {
-            T* xo = (T*)a.x + ((size_t)b * (Tn + 1) + t) * NX;
+        T th_stage = T(0), cphi = T(0);
 #pragma unroll
-            for (int i = 0; i < NX; ++i) xo[i] = x[i];
-#pragma unroll
-            for (int j = 0; j < NC; ++j) {
-                ((T*)a.phi)[s * NC + j] = phi[j];
-                ((T*)a.c)[s * NC + j] = c[j];            // un-relaxed
-            }
-        } else {
-            T th_stage = T(0), cphi = T(0);
-#pragma unroll
-            for (int j = 0; j < NC; ++j) {
-                const T c_rel = ((COMPL_MASK >> j) & 1) ? c[j] - mu : c[j];
-                th_stage += abs_(c_rel);
-                cphi += c_rel * phi[j];
-                fin = fin && finite_(phi[j]) && finite_(c[j]);
-            }
-#pragma unroll
-            for (int i = 0; i < NX; ++i) fin = fin && finite_(xn[i]);
-            th += th_stage;
-            J += cost;
-            L += cost + (cphi - mu * (logsum_l + logsum_u));
+        for (int j = 0; j < NC; ++j) {
+            const T c_rel = ((COMPL_MASK >> j) & 1) ? c[j] - mu : c[j];
+            th_stage += abs_(c_rel);
+            cphi += c_rel * phi[j];
+            fin = fin && finite_(phi[j]) && finite_(c[j]);
         }
+#pragma unroll
+        for (int i = 0; i < NX; ++i) fin = fin && finite_(xn[i]);
+        th += th_stage;
+        J += cost;
+        L += cost + (cphi - mu * (logsum_l + logsum_u));
 #pragma unroll
         for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
 
-    if (EMIT) {
-        T* xo = (T*)a.x + ((size_t)b * (Tn + 1) + Tn) * NX;
-#pragma unroll
-        for (int i = 0; i < NX; ++i) xo[i] = x[i];
+    const T term = model::terminal(x, theta);
+    th_out = th; J_out = J + term; L_out = L + term;
+    fin_out = fin; ftb_out = ftb;
+}
+
+// What one lane of a trial group holds of one stage: its KR rows of the
+// update law (bar, feedforward, feedback), the bounds beside its u rows,
+// and the nominal state. Filled one stage ahead of its use.
+template <typename T>
+struct StageRows {
+    T bar[KR], ff[KR], fb[KR][NX], lo[KR], hi[KR], xb[NX];
+};
+
+// Where a lane finds row q of the stacked update law u | phi | zl | zu:
+// pointers to stage 0 of instance b, and the values per stage (the row's
+// stride from stage to stage).
+template <typename T>
+struct RowSource {
+    const T *bar, *ff, *fb, *lo, *hi;
+    T *out, *il, *iu;
+    int width;           // rows of this kind per stage: NU or NC
+    bool is_u, live;     // a control row (bounds, il, iu); a row at all
+};
+
+template <typename T>
+__device__ __forceinline__ RowSource<T> row_source(const FwdArgs& a,
+                                                   const int b, const int Tn,
+                                                   const int q) {
+    RowSource<T> s;
+    s.live = q < NR;
+    const int row = s.live ? q : 0;          // dead slots read row 0 again
+    int idx;
+    const void *bar, *ff, *fb;
+    void* out;
+    s.is_u = row < NU;
+    s.width = NU;
+    if (row < NU) {
+        idx = row;
+        bar = a.ubar; ff = a.alpha; fb = a.beta; out = a.u;
+    } else if (row < NU + NC) {
+        idx = row - NU;
+        s.width = NC;
+        bar = a.phibar; ff = a.psi; fb = a.omega; out = a.phi;
+    } else if (row < 2 * NU + NC) {
+        idx = row - NU - NC;
+        bar = a.zlbar; ff = a.chi_l; fb = a.zeta_l; out = a.zl;
     } else {
-        const T term = model::terminal(x, theta);
-        th_out = th; J_out = J + term; L_out = L + term;
-        fin_out = fin; ftb_out = ftb;
+        idx = row - 2 * NU - NC;
+        bar = a.zubar; ff = a.chi_u; fb = a.zeta_u; out = a.zu;
     }
+    const size_t at = (size_t)b * Tn * s.width + idx;
+    s.bar = (const T*)bar + at;
+    s.ff = (const T*)ff + at;
+    s.fb = (const T*)fb + at * NX;
+    s.out = (T*)out + at;
+    // bounds and slacks exist for the control rows; other rows point at
+    // control row 0 and never use what they load there
+    const size_t at_u = (size_t)b * Tn * NU + (s.is_u ? idx : 0);
+    s.lo = (const T*)a.lo + at_u;
+    s.hi = (const T*)a.hi + at_u;
+    s.il = (T*)a.il + at_u;
+    s.iu = (T*)a.iu + at_u;
+    return s;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_rows(StageRows<T>& g,
+                                          const RowSource<T> (&src)[KR],
+                                          const T* xb, const int t) {
+#pragma unroll
+    for (int k = 0; k < KR; ++k) {
+        const size_t o = (size_t)t * src[k].width;
+        g.bar[k] = src[k].bar[o];
+        g.ff[k] = src[k].ff[o];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) g.fb[k][i] = src[k].fb[o * NX + i];
+        if (k * GT < NU) {                   // slots that can hold a u row
+            g.lo[k] = src[k].lo[(size_t)t * NU];
+            g.hi[k] = src[k].hi[(size_t)t * NU];
+        } else {
+            g.lo[k] = g.hi[k] = T(0);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) g.xb[i] = xb[t * NX + i];
 }
 
 template <typename T>
@@ -231,7 +315,7 @@ forward_metrics_kernel(const FwdArgs a, const int B, const int Tn,
     const int b = idx / K, k = idx - b * K;
     T th, L, J;
     bool fin, ftb;
-    rollout<T, false>(a, b, Tn, ((const T*)a.gamma)[k], th, L, J, fin, ftb);
+    rollout_metrics<T>(a, b, Tn, ((const T*)a.gamma)[k], th, L, J, fin, ftb);
     ((T*)a.th)[idx] = th;
     ((T*)a.L)[idx] = L;
     ((T*)a.J)[idx] = J;
@@ -242,11 +326,74 @@ forward_metrics_kernel(const FwdArgs a, const int B, const int Tn,
 template <typename T>
 __global__ void __launch_bounds__(NT_TRIAL)
 forward_trial_kernel(const FwdArgs a, const int B, const int Tn) {
-    const int b = blockIdx.x * NT_TRIAL + threadIdx.x;
-    if (b >= B) return;
-    T th, L, J;
-    bool fin, ftb;
-    rollout<T, true>(a, b, Tn, ((const T*)a.gamma)[b], th, L, J, fin, ftb);
+    constexpr int IPB = NT_TRIAL / GT;       // instances per block
+    const int r = threadIdx.x % GT;          // lane of the group
+    const int b_raw = blockIdx.x * IPB + threadIdx.x / GT;
+    // a ragged last block repeats the last instance and stores nothing: no
+    // lane may leave before the shuffles
+    const bool valid = b_raw < B;
+    const int b = valid ? b_raw : B - 1;
+    const T gamma = ((const T*)a.gamma)[b];
+    const T* theta = a.theta == nullptr
+        ? nullptr : (const T*)a.theta + (size_t)b * model::THETA_DIM;
+    const T* xb = (const T*)a.xbar + (size_t)b * (Tn + 1) * NX;
+    T* xo = (T*)a.x + (size_t)b * (Tn + 1) * NX;
+    T* co = (T*)a.c + (size_t)b * Tn * NC;
+
+    RowSource<T> src[KR];                    // this lane's rows r, r + GT, ..
+#pragma unroll
+    for (int k = 0; k < KR; ++k) src[k] = row_source<T>(a, b, Tn, r + k * GT);
+
+    T x[NX], dx[NX], xn[NX], u[NU], c[NC1];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xb[i];
+
+    StageRows<T> cur, nxt;
+    load_rows<T>(cur, src, xb, 0);
+    for (int t = 0; t < Tn; ++t) {
+        // the next stage's rows: their addresses do not depend on x
+        load_rows<T>(nxt, src, xb, t + 1 < Tn ? t + 1 : t);
+#pragma unroll
+        for (int i = 0; i < NX; ++i) dx[i] = x[i] - cur.xb[i];
+        T row[KR];
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+            row[k] = affine(cur.bar[k], gamma, cur.ff[k], cur.fb[k], dx);
+            if (valid && src[k].live) {
+                const size_t o = (size_t)t * src[k].width;
+                src[k].out[o] = row[k];
+                if (src[k].is_u) {
+                    // +inf at an absent bound, like plain u - (-inf)
+                    src[k].il[(size_t)t * NU] = row[k] - cur.lo[k];
+                    src[k].iu[(size_t)t * NU] = cur.hi[k] - row[k];
+                }
+            }
+        }
+        // control j is row j: slot j / GT of lane j % GT
+#pragma unroll
+        for (int j = 0; j < NU; ++j)
+            u[j] = __shfl_sync(FULL, row[j / GT], j % GT, GT);
+
+        T cost;
+        model::stage(x, u, t, theta, xn, c, cost);
+
+        if (valid) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i)
+                if (r == i % GT) xo[t * NX + i] = x[i];
+#pragma unroll
+            for (int j = 0; j < NC; ++j)
+                if (r == (NX + j) % GT) co[t * NC + j] = c[j];   // un-relaxed
+        }
+#pragma unroll
+        for (int i = 0; i < NX; ++i) x[i] = xn[i];
+        cur = nxt;
+    }
+    if (valid) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+            if (r == i % GT) xo[Tn * NX + i] = x[i];
+    }
 }
 
 static FwdArgs unpack(const void* const* p) {
@@ -280,7 +427,8 @@ static int launch_trial(const void* const* ptrs, int B, int Tn,
                         cudaStream_t stream) {
     if (B <= 0 || Tn <= 0) return 0;
     const FwdArgs a = unpack(ptrs);
-    const int blocks = (B + NT_TRIAL - 1) / NT_TRIAL;
+    constexpr int IPB = NT_TRIAL / GT;
+    const int blocks = (B + IPB - 1) / IPB;
     forward_trial_kernel<T><<<blocks, NT_TRIAL, 0, stream>>>(a, B, Tn);
     return (int)cudaGetLastError();
 }

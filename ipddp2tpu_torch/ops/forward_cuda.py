@@ -16,10 +16,16 @@ with the problem's Python functions. A wrapper takes the plain version only
 for tensors that lie on the CPU. For CUDA tensors it launches the kernel or
 raises; there is no fallback, not on a failed build either.
 
-Bound on this card: bytes (each instance reads some 250 values per stage
-once; the arithmetic is far below the vector rate). The first version of the
-kernels reads the solver's `[B, T, ...]` layout as it is and does not reach
-that bound; see the source's header.
+Bound on this card: bytes (each instance reads some 230 values per stage
+once; the arithmetic is far below the vector rate). The trial kernel is laid
+out for that bound: a group of 16 lanes of a warp owns an instance, the rows
+of the update law are dealt over the lanes so that a group's loads cover
+whole runs of an instance's stage, each lane loads its rows of stage t+1
+before stage t's model runs, and every value is stored by the lane that
+holds it. The metrics kernel still has one thread per (instance, candidate)
+on the solver's `[B, T, ...]` layout as it is and does not reach the bound;
+see the source's header. Both take the solver's dense tensors: nothing is
+re-laid out in the wrappers.
 
 Build: one library per (device model, nx, nu, nc, complementarity rows),
 under `ops/_build/` at first use, by `ops/build.py`.

@@ -258,3 +258,162 @@ def test_ladder_gives_up_above_reg_max():
     assert (np.asarray(ref.status) == 1).any()
     np.testing.assert_array_equal(tnp(out.status), np.asarray(ref.status))
     np.testing.assert_allclose(tnp(out.reg), np.asarray(ref.reg), rtol=1e-14)
+
+
+def _ladder_case(reg_last, force_fail_lane=None):
+    """The indefinite-cost tiny problem with the lanes spread over the
+    ladder, in the port's types: (problem, deriv, nominal, second, mu,
+    reg_last)."""
+    jp, pp = tiny_problems(2)(bad_cost=True)
+    inp = tiny_inputs(1, B, 2)
+    scale = np.array([1.0, 30.0, 1e3, 3e4])[:, None, None]
+    inp["zl"], inp["zu"] = inp["zl"] * scale, inp["zu"] * scale
+    mu = np.full(B, 0.1)
+    deriv, nominal, second, _, _ = _jax_side(jp, inp, mu, np.zeros(B),
+                                             np.zeros(B))
+    d = convert.deriv_from_numpy(deriv)
+    if force_fail_lane is not None:
+        # no reg below reg_max = 1e3 repairs this lane
+        luu = d.luu.clone()
+        luu[force_fail_lane] -= 1e6 * torch.eye(3, dtype=torch.float64)
+        d = d._replace(luu=luu)
+    n = tuple(torch.as_tensor(np.asarray(a)) for a in nominal)
+    return (pp, d, n, torch.as_tensor(np.asarray(second)),
+            torch.as_tensor(mu), torch.full((B,), reg_last,
+                                            dtype=torch.float64))
+
+
+@pytest.mark.parametrize("case", [(0.0, None), (0.3, None), (0.0, 2)],
+                         ids=["fresh", "reg_last", "forced_failure"])
+def test_prepare_once_equals_per_attempt(case, monkeypatch):
+    """The ladder through the kernel's wrapper (inputs prepared once per
+    backward pass, one `sweep_prepared` per attempt; on CPU tensors the
+    wrapper takes the plain version) gives bit-identical results to the
+    ladder over `_run_pass`."""
+    from ipddp2tpu_torch.ops import backward_cuda
+    reg_last, lane = case
+    pp, d, n, s, mu, rl = _ladder_case(reg_last, lane)
+    opts = P.Options(reg_max=1e3) if lane is not None else P.Options()
+    ref = pb.backward_pass(pp, d, n, mu, rl, opts, second=s)
+
+    calls = {"prepare": 0, "attempt": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(pb, "_use_cuda_kernel", lambda options, t: True)
+    monkeypatch.setattr(pb, "prepare_sweep",
+                        counted("prepare", backward_cuda.prepare_sweep))
+    monkeypatch.setattr(pb, "sweep_prepared",
+                        counted("attempt", backward_cuda.sweep_prepared))
+    backward_cuda.reset_launch_counts()
+    out = pb.backward_pass(pp, d, n, mu, rl, opts, second=s)
+    assert calls["prepare"] == 1 and calls["attempt"] > 1, calls
+    assert sum(backward_cuda.launch_counts.values()) == 0
+    assert float(out.reg.max()) > 0
+    if lane is not None:
+        assert int(out.status[lane]) == 1 and int(out.status.sum()) == 1
+    for a, b in zip(out.gains, ref.gains):
+        assert torch.equal(a, b)
+    for name in ("dL", "status", "reg", "delta_c", "lam"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+
+
+def test_prepared_inputs_serve_every_attempt():
+    """`backward_sweep_cuda` is `prepare_sweep` + `sweep_prepared`; one
+    prepared set takes any (reg, delta_c), also from strided inputs."""
+    from ipddp2tpu_torch.ops import backward_cuda
+    pp, d, n, s, mu, _ = _ladder_case(0.0)
+    wide = lambda t: torch.cat([t, t], dim=-1)[..., :t.shape[-1]]
+    fixed = [d.fx, d.fu, d.lx, d.lu, d.lxx, d.lux, d.luu, d.cx, d.cu, s, *n,
+             d.lTx, d.lTxx, mu]
+    kw = dict(nx=2, nu=3, nc=2)
+    prepared = backward_cuda.prepare_sweep(*[wide(t) for t in fixed[:-1]],
+                                           mu, **kw)
+    for reg, dc in ((0.0, 0.0), (0.5, 0.0), (10.0, 1e-8)):
+        reg_t, dc_t = (torch.full((B,), v, dtype=torch.float64)
+                       for v in (reg, dc))
+        one = backward_cuda.sweep_prepared(prepared, reg_t, dc_t, refine=1,
+                                           rtol=1e-6)
+        ref = backward_sweep_cuda(*fixed, reg_t, dc_t, **kw, refine=1,
+                                  rtol=1e-6)
+        for a, b in zip(one[0] + one[1:], ref[0] + ref[1:]):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="reg"):
+        backward_cuda.sweep_prepared(prepared, torch.zeros(B + 1), dc_t,
+                                     refine=1, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dims,lanes,per_block,f32,f64", [
+    ((4, 10, 4), 16, 8, 54912, 108416),      # concar: two instances a warp
+    ((2, 3, 1), 4, 32, None, None),          # double integrator
+    ((2, 3, 0), 4, 32, 30208, 55296),        # the tiny problem, nc = 0
+    ((2, 1, 0), 1, 128, None, None),         # one lane an instance
+    ((6, 20, 12), 32, 4, None, None),        # a whole warp an instance
+])
+def test_launch_geometry(dims, lanes, per_block, f32, f64):
+    """G is the smallest power of two >= nu + nc, a block is 4 warps, and
+    the shared memory follows the source's layout (every run of the two
+    stage buffers padded to 16 bytes)."""
+    from ipddp2tpu_torch.ops.backward_cuda import (SMEM_LIMIT,
+                                                   launch_geometry)
+    geo = launch_geometry(*dims)
+    assert geo.lanes == lanes and geo.lanes >= dims[1] + dims[2]
+    assert geo.instances_per_block == per_block
+    assert geo.threads == lanes * per_block == 128
+    assert 2 * geo.smem_bytes[torch.float32] >= geo.smem_bytes[torch.float64]
+    assert geo.smem_bytes[torch.float64] <= SMEM_LIMIT
+    if f32 is not None:
+        assert geo.smem_bytes == {torch.float32: f32, torch.float64: f64}
+    if dims == (4, 10, 4):
+        # 2 x 526 stage values + K 14x15 + L 14x17 + rhs, X 2x70 + C, Vxx
+        # 2x16 + Vx 2x4 + pivot order 14 = 1694 doubles an instance
+        assert f64 == 8 * 1694 * 8
+
+
+def test_launch_geometry_refuses_what_does_not_fit():
+    from ipddp2tpu_torch.ops.backward_cuda import launch_geometry
+    with pytest.raises(ValueError, match="nu \\+ nc = 33 > 32"):
+        launch_geometry(4, 21, 12)
+    with pytest.raises(ValueError, match="227 KB"):
+        launch_geometry(60, 20, 12)
+    # fewer warps a block before giving up
+    assert launch_geometry(20, 20, 12).threads < 128
+    with pytest.raises(ValueError, match="bad dimensions"):
+        launch_geometry(2, 0, 0)
+
+
+def test_crafted_lanes_through_the_plain_sweep():
+    """The lanes on which a pivot search can go wrong, as the GPU run hands
+    them to the kernel: a tie passes like an untouched lane, a NaN diagonal
+    fails without `singular`, an exact zero pivot fails as `singular` with
+    and without delta_c, and passes once reg fills the zero row."""
+    from ipddp2tpu_torch.ops.ldlt import ldlt_factor_pivoted
+    from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_LANES,
+                                                   crafted_inputs)
+    lane = {n: i for i, n in enumerate(CRAFTED_LANES)}
+    for dims in ((4, 10, 4), (2, 3, 1), (2, 3, 0)):
+        for dtype in (torch.float64, torch.float32):
+            args = crafted_inputs(*dims, dtype, "cpu")
+            gains, dL, fail, sing = pb.sweep_plain(
+                *args, nx=dims[0], nu=dims[1], nc=dims[2], refine=1,
+                rtol=1e-6)
+            assert fail.tolist() == [False, False, True, True, True, False]
+            assert sing.tolist() == [False, False, False, True, True, False]
+            ok = ~fail
+            assert all(bool(torch.isfinite(g[ok]).all()) for g in gains)
+    # the tie lane's first KKT matrix: entries 1 and 2 tie, 1 is taken
+    args = crafted_inputs(4, 10, 4, torch.float64, "cpu")
+    i = lane["tie"]
+    K = torch.zeros(14, 14, dtype=torch.float64)
+    K[:10, :10] = args[6][i, -1]
+    K[10:, :10], K[:10, 10:] = args[8][i, -1], args[8][i, -1].T
+    assert K[1, 1] == K[2, 2] == K.diagonal().abs().max()
+    assert int(ldlt_factor_pivoted(K).perm[0]) == 1
+    # NaN wins the pivot search like in an argmax and fails the lane
+    K[5, 5] = float("nan")
+    f = ldlt_factor_pivoted(K)
+    assert int(f.perm[0]) == 5 and not bool(f.ok)
