@@ -2,13 +2,14 @@
 """Drive the PyTorch/CUDA port's main paths on an NVIDIA H100, end to end.
 
     python3 chip_smoke.py [--batch 2048] [--max-iterations 1000] [--ptxas]
-                          [--kernels-only] [--log FILE]
+                          [--kernels-only] [--log FILE] [--parent DIR]
 
 Needs one CUDA device of compute capability 9.0 and `nvcc`; with no device it
 exits non-zero at the first phase. It imports `torch` and `ipddp2tpu_torch`
 only. Phases, each printing one JSON line:
 
-  device     the card, its capability and its power limit;
+  device     the card, its capability, its power limit and highest SM
+             clock;
   build      compiles every kernel from the sources in this checkout, all
              `nvcc` processes started together: the backward sweep (concar,
              double integrator, a tiny nc=0 model), the forward kernels of
@@ -20,12 +21,18 @@ only. Phases, each printing one JSON line:
              card, at the main path's shapes (a mid-solve concar state, B
              lanes, T=100, K=8) and on the small models, with some lanes
              perturbed so that flags of both values occur; times kernel and
-             plain version and computes each kernel's lower bound; for the
-             sweep also a crafted batch on which a pivot search spread over
-             lanes can go wrong (exact ties, a NaN diagonal, exact zero
-             pivots) in all three dimensions, batches that do not fill
-             their last block (B - 3 and 1), its time at 256 to 8192 lanes,
-             the time of preparing its inputs, and its cycle counters;
+             plain version and computes each kernel's lower bound. A
+             kernel's `ms` is from replaying a CUDA graph of 10 launches
+             through its wrapper (the wrapper's host time left out),
+             `ms_eager` from 10 back-to-back Python calls. For the sweep
+             also a crafted batch on which a pivot search spread over lanes
+             can go wrong (exact ties, a NaN diagonal, exact zero pivots) in
+             all three dimensions, batches that do not fill their last
+             block (B - 3 and 1), its time at 256 to 8192 lanes, the time of
+             preparing its inputs, and its cycle counters. For the metrics
+             kernel (K3) also its checks at K = 1, 3, 8, 13, 40 on B, B - 3
+             and 1 lanes of all three models (`metrics_grid`) and its time
+             at 256 to 8192 lanes (`metrics_scaling`);
   probes     the two chain probes, driven once at their size;
   graphs     the rollout replayed from a CUDA graph equals the eager one;
   solve_hybrid_f64  THE MAIN PATH: `solve_batch` on concar at its published
@@ -41,7 +48,11 @@ only. Phases, each printing one JSON line:
   backtrack_cuda  20 iterations of pure backtracking with the forward-trial
              kernel as the rollout;
   phases     a timed split of a few mid-solve iterations into the solver's
-             phases, with the backtracking and with the hybrid forward pass.
+             phases, with the backtracking and with the hybrid forward pass;
+  parent_and_change  with --parent DIR (a checkout of the parent commit):
+             K3 built from that checkout's source under another stem and
+             K3 of this tree in turns (parent, change, change, parent): K3's
+             time in both types and the hybrid solve with each.
 
 Any failed assertion or exception ends the run with a non-zero exit code and
 without the last line. The last three lines are the kernels' JSON object,
@@ -49,11 +60,14 @@ the card's name and power limit, and the result object.
 """
 
 import argparse
+import ctypes
 import json
 import math
 import subprocess
 import sys
 import time
+import types
+from pathlib import Path
 
 import torch
 
@@ -75,7 +89,8 @@ from ipddp2tpu_torch.ops.backward_cuda import (backward_sweep_cuda,
 from ipddp2tpu_torch.ops.forward_cuda import (forward_metrics_cuda,
                                               forward_metrics_plain,
                                               forward_trial_cuda,
-                                              forward_trial_plain)
+                                              forward_trial_plain,
+                                              metrics_geometry)
 from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_LANES, SECTIONS,
                                                crafted_inputs)
 from ipddp2tpu_torch.problem import Bounds
@@ -86,6 +101,12 @@ from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
 # memory rate, and the vector (non-tensor-core) rates the sweep can use.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+# Clocks from the start of a floating-point multiply or multiply-add to the
+# start of one that needs its result: 4 is the least on NVIDIA SMs since
+# Volta (Jia et al., "Dissecting the NVIDIA Volta GPU Architecture via
+# Microbenchmarking", 2018: 4 for FMUL/FFMA, 8 for DMUL/DFMA). Taken for
+# both types, so that the probes' latency bound stays a lower bound.
+DEPENDENT_OP_CLOCKS = 4
 # kernel-vs-plain tolerances, relative to each tensor's scale. Sweep gains:
 # both sides do the same arithmetic in another order (and the kernel with
 # fused multiply-adds), so they differ by rounding amplified by the KKT
@@ -195,6 +216,8 @@ def sweep_flops(T, nx, nu, nc, refine):
 
 
 def cuda_ms(fn, reps):
+    """ms per call of `fn` over `reps` back-to-back calls from Python:
+    a kernel's wrapper costs its host time here too (checks, ctypes)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -205,6 +228,35 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps, replays=3):
+    """ms per call of `fn` from replaying a CUDA graph that holds `reps`
+    calls, captured on inputs made beforehand: the launches (the wrapper's
+    ctypes call launches on the capturing stream) and whatever the wrapper
+    does on the device are in, its host time is out."""
+    fn()                                     # build, allocator, first use
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (reps * replays)
 
 
 def borderline(args, dims, rtol):
@@ -245,8 +297,9 @@ def check_kernel(name, args, dims, rtol, time_reps, need_both=True):
                   lanes=int(fp.numel()), lanes_failing=int(fp.sum()),
                   lanes_borderline=int(edge.sum()))
     if time_reps:
-        fields["ms"] = cuda_ms(
-            lambda: backward_sweep_cuda(*args, **dims, rtol=rtol), time_reps)
+        kernel = lambda: backward_sweep_cuda(*args, **dims, rtol=rtol)
+        fields["ms"] = graph_ms(kernel, time_reps)
+        fields["ms_eager"] = cuda_ms(kernel, time_reps)
         fields["plain_ms"] = cuda_ms(
             lambda: sweep_plain(*args, **dims, rtol=rtol), 1)
         nbytes = sum(a.numel() * a.element_size() for a in args)
@@ -255,11 +308,7 @@ def check_kernel(name, args, dims, rtol, time_reps, need_both=True):
         B, T = args[11].shape[0], args[11].shape[1]
         flops = B * sweep_flops(T, dims["nx"], dims["nu"], dims["nc"],
                                 dims["refine"])
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        fields.update(bytes=nbytes, flops=flops,
-                      bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+        fields.update(kernel_bound(nbytes, flops, dtype))
     return fields
 
 
@@ -290,15 +339,15 @@ def sweep_scaling(args, dims, rtol, sizes, reps):
     for B in sizes:
         rep = -(-B // B0)
         sized = [torch.cat([a] * rep)[:B].contiguous() for a in args]
-        times[str(B)] = cuda_ms(
+        times[str(B)] = graph_ms(
             lambda: backward_sweep_cuda(*sized, **dims, rtol=rtol), reps)
         del sized
     shape = {k: dims[k] for k in ("nx", "nu", "nc")}
     # slices of wider tensors, as the Jacobians arrive from the derivatives
     wide = [torch.cat([a, a], dim=-1)[..., :a.shape[-1]] for a in args[:19]]
-    prepare_ms = cuda_ms(lambda: prepare_sweep(*wide, **shape), reps)
+    prepare_ms = graph_ms(lambda: prepare_sweep(*wide, **shape), reps)
     prepared = prepare_sweep(*args[:19], **shape)
-    launch_ms = cuda_ms(lambda: sweep_prepared(
+    launch_ms = graph_ms(lambda: sweep_prepared(
         prepared, args[19], args[20], refine=dims["refine"], rtol=rtol), reps)
     prof = torch.zeros(len(SECTIONS), dtype=torch.int64,
                        device=args[0].device)
@@ -401,96 +450,36 @@ def boundary_edge(trial, args, tol):
     return edge
 
 
-def check_forward(name, args, K, dtype, time_reps, need_both_flags):
-    """K3 and K4 against their plain versions on the same inputs.
+def _held(failures, name, what, per_kernel, per_plain, tol, wide):
+    """Record a failure unless every tensor's kernel error is within `tol`
+    or (float32) 4x the plain version's own error against float64."""
+    for key, rel in per_kernel.items():
+        limit = max(tol, 4.0 * per_plain.get(key, 0.0)) if wide else tol
+        if not rel <= limit:
+            failures.append(f"{name}: {what} {key}: {rel} > {limit}")
 
-    float64: kernel against plain, relative to each tensor's scale: TOL on
-    the candidates that stay inside the boundary, TOL_OUTSIDE on the rest.
-    float32: the rollout feeds its rounding back through gains of 1e3 and
-    more for T stages, so two float32 evaluations of one trajectory part by
-    far more than rounding on the worst lanes, whatever computes them. Both
-    the kernel and the float32 plain version are therefore held against the
-    plain version in float64 on the same (float32) inputs, and the kernel
-    must come as close to it as the plain version does, within a factor 4,
-    or within the tolerances above. Returns the measured fields of the metrics and of the
-    trial kernel and the list of failed checks."""
-    problem = args[0]
-    B, device = args[6].shape[0], args[6].device
-    gammas = torch.tensor([0.5 ** i for i in range(K)], dtype=dtype,
-                          device=device)
-    tol = TOL[dtype]
+
+def _fold(kernel, plain, ref, where, acc_kernel, acc_plain, key, wide):
+    """Fold one tensor's errors against `ref` on `where` into the
+    per-tensor maxima; returns the absolute error."""
+    err, rel = rel_err(kernel, ref, where)
+    acc_kernel[key] = max(acc_kernel.get(key, 0.0), rel)
+    if wide:
+        acc_plain[key] = max(acc_plain.get(key, 0.0),
+                             rel_err(plain, ref, where)[1])
+    return err
+
+
+def hold_metrics(name, mk, mp, mr, edge, dtype, need_both_flags, failures):
+    """K3's outputs `mk` against the plain version's `mp` and the reference
+    `mr` (`mp` itself in float64; in float32 the float64 plain version on
+    the same inputs). The finite flags everywhere, the boundary flags away
+    from the threshold (`edge [B, K]`), the measures inside the boundary
+    and theta, J on every finite candidate (L takes the log of a negative
+    slack outside). Appends to `failures`; returns the measured fields."""
     wide = dtype != torch.float64
-    ref_args = ([args[0]] + [cast_tree(a, torch.float64) for a in args[1:]]
-                if wide else args)
-    ref_gammas = gammas.to(torch.float64)
-    same = lambda t: [a.to(dtype) if a.is_floating_point() else a for a in t]
-    failures = []
-
-    def held(what, per_kernel, per_plain, tol=tol):
-        """Record a failure unless every tensor's kernel error is within
-        `tol` or 4x the plain version's own error against float64."""
-        for key, rel in per_kernel.items():
-            limit = max(tol, 4.0 * per_plain.get(key, 0.0)) if wide else tol
-            if not rel <= limit:
-                failures.append(f"{name}: {what} {key}: {rel} > {limit}")
-
-    def errors(kernel, plain, ref, where, acc_kernel, acc_plain, key):
-        """Fold one tensor's errors against `ref` on `where` into the
-        per-tensor maxima; returns the absolute error."""
-        err, rel = rel_err(kernel, ref, where)
-        acc_kernel[key] = max(acc_kernel.get(key, 0.0), rel)
-        if wide:
-            acc_plain[key] = max(acc_plain.get(key, 0.0),
-                                 rel_err(plain, ref, where)[1])
-        return err
-
-    mk = forward_metrics_cuda(*args, gammas)
-    torch.cuda.synchronize()
-    mp = forward_metrics_plain(*args, gammas)
-    mr = (same(forward_metrics_plain(*ref_args, ref_gammas)) if wide
-          else mp)
     fin_k, ftb_k, fin_p, ftb_p = mk[3], mk[4], mp[3], mp[4]
     fin_r = fin_p & mr[3]
-
-    # K4 at every candidate step size: the trial, and which lanes sit on the
-    # boundary test's threshold there
-    edge = torch.zeros((B, K), dtype=torch.bool, device=device)
-    lanes = torch.arange(B, device=device)
-    mixed = [None] * 8
-    t_abs, t_kernel, t_plain, t_out_kernel, t_out_plain = 0.0, {}, {}, {}, {}
-    inside = fin_r & ftb_p & mr[4]
-    for k in range(K):
-        g = gammas[k].expand(B).contiguous()
-        tk = forward_trial_cuda(*args, g)
-        torch.cuda.synchronize()
-        tp = forward_trial_plain(*args, g)
-        tr = (same(forward_trial_plain(*ref_args, g.to(torch.float64)))
-              if wide else tp)
-        edge[:, k] = boundary_edge(tp, args, tol)
-        for tname, a, b, r in zip(TRIAL_NAMES, tk, tp, tr):
-            if b[0].numel() == 0:
-                continue
-            t_abs = max(t_abs, errors(a, b, r, inside[:, k], t_kernel,
-                                      t_plain, tname))
-            errors(a, b, r, fin_r[:, k], t_out_kernel, t_out_plain, tname)
-        pick = lanes % K == k
-        mixed = [r if m is None else
-                 torch.where(pick.reshape((-1,) + (1,) * (r.dim() - 1)), r, m)
-                 for m, r in zip(mixed, tr)]
-    held("trial", t_kernel, t_plain)
-    held("trial (all finite candidates)", t_out_kernel, t_out_plain,
-         TOL_OUTSIDE[dtype])
-    # one launch with a different step size on every lane
-    g_mixed = gammas[lanes % K].contiguous()
-    tk = forward_trial_cuda(*args, g_mixed)
-    torch.cuda.synchronize()
-    ok = inside[lanes, lanes % K]
-    held("mixed-gamma trial",
-         {n: rel_err(a, b, ok)[1]
-          for n, a, b in zip(TRIAL_NAMES, tk, mixed) if b[0].numel()},
-         t_plain)
-
-    # flags: finite everywhere; the boundary test away from its threshold
     if not bool((fin_k == fin_p).all()):
         failures.append(f"{name}: finite flags differ on "
                         f"{int((fin_k != fin_p).sum())} candidates")
@@ -504,35 +493,134 @@ def check_forward(name, args, K, dtype, time_reps, need_both_flags):
             and int((fin_p & ftb_p).sum()) > 0):
         failures.append(f"{name}: need non-finite, boundary-failing and "
                         "passing candidates")
-    # measures: inside the boundary; theta and J also on every finite
-    # candidate (L takes the log of a negative slack outside)
-    inside = inside & ~edge
+    inside = fin_r & ftb_p & mr[4] & ~edge
     m_abs, m_kernel, m_plain, m_out_kernel, m_out_plain = 0.0, {}, {}, {}, {}
     for mname, i in (("theta", 0), ("L", 1), ("J", 2)):
-        m_abs = max(m_abs, errors(mk[i], mp[i], mr[i], inside, m_kernel,
-                                  m_plain, mname))
+        m_abs = max(m_abs, _fold(mk[i], mp[i], mr[i], inside, m_kernel,
+                                 m_plain, mname, wide))
         if mname != "L":
-            errors(mk[i], mp[i], mr[i], fin_r, m_out_kernel, m_out_plain,
-                   mname)
-    held("measure", m_kernel, m_plain)
-    held("measure (all finite candidates)", m_out_kernel, m_out_plain,
-         TOL_OUTSIDE[dtype])
+            _fold(mk[i], mp[i], mr[i], fin_r, m_out_kernel, m_out_plain,
+                  mname, wide)
+    _held(failures, name, "measure", m_kernel, m_plain, TOL[dtype], wide)
+    _held(failures, name, "measure (all finite candidates)", m_out_kernel,
+          m_out_plain, TOL_OUTSIDE[dtype], wide)
+    fields = dict(
+        max_abs_err=m_abs, max_rel_err=max(m_kernel.values(), default=0.0),
+        rel_err=m_kernel, rel_err_all_finite=m_out_kernel,
+        against="plain float64" if wide else "plain",
+        inside=int(inside.sum()), candidates=int(fin_p.numel()),
+        not_finite=int((~fin_p).sum()),
+        boundary_failing=int((fin_p & ~ftb_p).sum()),
+        borderline=int((fin_p & edge).sum()),
+        boundary_flags_differing_on_borderline=int(
+            ((ftb_k != ftb_p) & fin_p & edge).sum()))
+    if wide:
+        fields.update(plain_rel_err=m_plain,
+                      plain_rel_err_all_finite=m_out_plain)
+    return fields
 
-    counts = dict(candidates=B * K, not_finite=int((~fin_p).sum()),
-                  boundary_failing=int((fin_p & ~ftb_p).sum()),
-                  borderline=int((fin_p & edge).sum()),
-                  boundary_flags_differing_on_borderline=int(
-                      ((ftb_k != ftb_p) & fin_p & edge).sum()))
-    against = "plain float64" if wide else "plain"
-    metrics = dict(max_abs_err=m_abs, max_rel_err=max(m_kernel.values()),
-                   rel_err=m_kernel, rel_err_all_finite=m_out_kernel,
-                   against=against, inside=int(inside.sum()), **counts)
+
+def wide_args(args, dtype):
+    """The float64 reference's inputs: `args` themselves in float64, the
+    same (float32) inputs cast to float64 otherwise."""
+    if dtype == torch.float64:
+        return args
+    return [args[0]] + [cast_tree(a, torch.float64) for a in args[1:]]
+
+
+def same_type(t, dtype):
+    return [a.to(dtype) if a.is_floating_point() else a for a in t]
+
+
+def candidate_steps(K, dtype, device):
+    """The hybrid search's K candidates 2^-k, built on the host (exact)."""
+    return torch.tensor([0.5 ** i for i in range(K)], dtype=dtype,
+                        device=device)
+
+
+def kernel_bound(nbytes, flops, dtype):
+    """The least time for the work: bytes over the memory rate against
+    operations over the vector rate, the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_forward(name, args, K, dtype, time_reps, need_both_flags):
+    """K3 and K4 against their plain versions on the same inputs.
+
+    float64: kernel against plain, relative to each tensor's scale: TOL on
+    the candidates that stay inside the boundary, TOL_OUTSIDE on the rest.
+    float32: the rollout feeds its rounding back through gains of 1e3 and
+    more for T stages, so two float32 evaluations of one trajectory part by
+    far more than rounding on the worst lanes, whatever computes them. Both
+    the kernel and the float32 plain version are therefore held against the
+    plain version in float64 on the same (float32) inputs, and the kernel
+    must come as close to it as the plain version does, within a factor 4,
+    or within the tolerances above. Returns the measured fields of the
+    metrics and of the trial kernel and the list of failed checks."""
+    problem = args[0]
+    B, device = args[6].shape[0], args[6].device
+    gammas = candidate_steps(K, dtype, device)
+    tol = TOL[dtype]
+    wide = dtype != torch.float64
+    ref_args = wide_args(args, dtype)
+    failures = []
+
+    mk = forward_metrics_cuda(*args, gammas)
+    torch.cuda.synchronize()
+    mp = forward_metrics_plain(*args, gammas)
+    mr = (same_type(forward_metrics_plain(*ref_args,
+                                          gammas.to(torch.float64)), dtype)
+          if wide else mp)
+    fin_r = mp[3] & mr[3]
+
+    # K4 at every candidate step size: the trial, and which lanes sit on the
+    # boundary test's threshold there
+    edge = torch.zeros((B, K), dtype=torch.bool, device=device)
+    lanes = torch.arange(B, device=device)
+    mixed = [None] * 8
+    t_abs, t_kernel, t_plain, t_out_kernel, t_out_plain = 0.0, {}, {}, {}, {}
+    inside = fin_r & mp[4] & mr[4]
+    for k in range(K):
+        g = gammas[k].expand(B).contiguous()
+        tk = forward_trial_cuda(*args, g)
+        torch.cuda.synchronize()
+        tp = forward_trial_plain(*args, g)
+        tr = (same_type(forward_trial_plain(*ref_args, g.to(torch.float64)),
+                        dtype) if wide else tp)
+        edge[:, k] = boundary_edge(tp, args, tol)
+        for tname, a, b, r in zip(TRIAL_NAMES, tk, tp, tr):
+            if b[0].numel() == 0:
+                continue
+            t_abs = max(t_abs, _fold(a, b, r, inside[:, k], t_kernel,
+                                     t_plain, tname, wide))
+            _fold(a, b, r, fin_r[:, k], t_out_kernel, t_out_plain, tname,
+                  wide)
+        pick = lanes % K == k
+        mixed = [r if m is None else
+                 torch.where(pick.reshape((-1,) + (1,) * (r.dim() - 1)), r, m)
+                 for m, r in zip(mixed, tr)]
+    _held(failures, name, "trial", t_kernel, t_plain, tol, wide)
+    _held(failures, name, "trial (all finite candidates)", t_out_kernel,
+          t_out_plain, TOL_OUTSIDE[dtype], wide)
+    # one launch with a different step size on every lane
+    g_mixed = gammas[lanes % K].contiguous()
+    tk = forward_trial_cuda(*args, g_mixed)
+    torch.cuda.synchronize()
+    ok = inside[lanes, lanes % K]
+    _held(failures, name, "mixed-gamma trial",
+          {n: rel_err(a, b, ok)[1]
+           for n, a, b in zip(TRIAL_NAMES, tk, mixed) if b[0].numel()},
+          t_plain, tol, wide)
+
+    metrics = hold_metrics(name, mk, mp, mr, edge, dtype, need_both_flags,
+                           failures)
     trial = dict(max_abs_err=t_abs, max_rel_err=max(t_kernel.values()),
                  rel_err=t_kernel, rel_err_all_finite=t_out_kernel,
-                 against=against)
+                 against=metrics["against"])
     if wide:
-        metrics.update(plain_rel_err=m_plain,
-                       plain_rel_err_all_finite=m_out_plain)
         trial.update(plain_rel_err=t_plain,
                      plain_rel_err_all_finite=t_out_plain)
     if time_reps:
@@ -546,22 +634,106 @@ def check_forward(name, args, K, dtype, time_reps, need_both_flags):
                 (trial, lambda: forward_trial_cuda(*args, g_mixed),
                  lambda: forward_trial_plain(*args, g_mixed),
                  shared + [g_mixed], tk, B)):
-            fields["ms"] = cuda_ms(kernel, time_reps)
+            fields["ms"] = graph_ms(kernel, time_reps)
+            fields["ms_eager"] = cuda_ms(kernel, time_reps)
             fields["plain_ms"] = cuda_ms(plain, 1)
-            nbytes = size(reads) + size(writes)
-            flops = forward_flops(problem, lanes_n)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-            fields.update(bytes=nbytes, flops=flops,
-                          bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops
-                          else "operations")
+            fields.update(kernel_bound(size(reads) + size(writes),
+                                       forward_flops(problem, lanes_n),
+                                       dtype))
     return metrics, trial, failures
 
 
-def check_probes(dtype, device, batch, steps, seed):
+# the K and batch sizes at which K3 is held against its plain version
+METRICS_KS = (1, 3, 8, 13, 40)
+
+
+def check_metrics(name, args, K, dtype, need_both_flags=False):
+    """K3 alone against its plain version at K candidates, held as
+    `check_forward` holds it; the plain versions (and the plain trials that
+    mark the boundary test's threshold) run on 8 candidates at a time."""
+    B, device = args[6].shape[0], args[6].device
+    gammas = candidate_steps(K, dtype, device)
+    wide = dtype != torch.float64
+    ref_args = wide_args(args, dtype)
+    mk = forward_metrics_cuda(*args, gammas)
+    torch.cuda.synchronize()
+    parts_p, parts_r, edges = [], [], []
+    for g in gammas.split(8):
+        parts_p.append(forward_metrics_plain(*args, g))
+        parts_r.append(same_type(forward_metrics_plain(
+            *ref_args, g.to(torch.float64)), dtype) if wide else parts_p[-1])
+        # the plain trials of these candidates, as B * len(g) lanes
+        rep = repeat_candidates(args, g.shape[0])
+        edges.append(boundary_edge(forward_trial_plain(*rep, g.repeat(B)),
+                                   rep, TOL[dtype]).reshape(B, -1))
+    mp = [torch.cat(p, dim=1) for p in zip(*parts_p)]
+    mr = [torch.cat(p, dim=1) for p in zip(*parts_r)]
+    failures = []
+    fields = hold_metrics(name, mk, mp, mr, torch.cat(edges, dim=1), dtype,
+                          need_both_flags, failures)
+    return fields, failures
+
+
+def map_lanes(args, fn):
+    """The forward wrappers' arguments with `fn` applied to every
+    lane-indexed tensor (theta's leaves, bounds, gains, state, mu, tau)."""
+    out = list(args)
+    out[1] = None if args[1] is None else type(args[1])(
+        *(fn(x) for x in args[1]))
+    out[2:4] = [fn(a) for a in args[2:4]]
+    out[4] = tuple(fn(g) for g in args[4])
+    out[5:14] = [fn(a) for a in args[5:14]]
+    return out
+
+
+def repeat_candidates(args, K):
+    """Every lane repeated K times in place (lane b's candidates are lanes
+    b*K .. b*K+K-1), as `forward_metrics_plain` lays them out."""
+    return map_lanes(args, lambda a: a.repeat_interleave(K, dim=0))
+
+
+def metrics_grid(label, args, dtype, batch):
+    """K3 at every K of METRICS_KS on `batch` lanes and on ragged batches
+    (batch - 3 and 1): max relative error by K and B. Raises on a failed
+    check."""
+    errs, failures = {}, []
+    for B in (batch, batch - 3, 1):
+        sized = lanes_of(args, B)
+        for K in METRICS_KS:
+            fields, bad = check_metrics(f"{label}/B={B}/K={K}", sized, K,
+                                        dtype)
+            errs[f"B={B},K={K}"] = fields["max_rel_err"]
+            failures += bad
+    assert not failures, "\n".join(failures)
+    return errs
+
+
+def lanes_of(args, B):
+    """The forward wrappers' arguments cut or repeated to B lanes."""
+    rep = -(-B // args[6].shape[0])
+    return map_lanes(args, lambda a: torch.cat([a] * rep)[:B].contiguous())
+
+
+def metrics_scaling(args, dtype, K, sizes, reps):
+    """K3's time by batch size (the main shapes' inputs cut or repeated to
+    B lanes), from graph replay."""
+    gammas = candidate_steps(K, dtype, args[6].device)
+    times = {}
+    for B in sizes:
+        sized = lanes_of(args, B)
+        times[str(B)] = graph_ms(
+            lambda: forward_metrics_cuda(*sized, gammas), reps)
+        del sized
+    return times
+
+
+def check_probes(dtype, device, batch, steps, seed, sm_mhz):
     """P1 and P2 against their plain versions (and P1 in double against the
-    closed form); times and bounds like any kernel."""
+    closed form); times and bounds like any kernel, and a latency bound:
+    each is a chain of `steps` dependent operations (P1 a multiply, P2 the
+    one multiply-add a step that carries position, heading and speed to the
+    next step: the sine and cosine feed no later step), which takes at least
+    DEPENDENT_OP_CLOCKS clocks each at the SM's highest clock `sm_mhz`."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     rand = lambda *s: torch.rand(s, generator=gen, dtype=torch.float64)
     c = 1.0000001
@@ -586,16 +758,17 @@ def check_probes(dtype, device, batch, steps, seed):
             closed = float(((got - x0 * c ** steps) / got).abs().max())
             assert closed <= tol, f"mul_chain against c**T: {closed}"
             fields["rel_err_against_closed_form"] = closed
-        fields["ms"] = cuda_ms(kernel, 10)
+        fields["ms"] = graph_ms(kernel, 10)
+        fields["ms_eager"] = cuda_ms(kernel, 10)
         fields["plain_ms"] = cuda_ms(plain, 1)
         nbytes = sum(t.numel() * t.element_size() for t in reads + [got])
         flops = (x0.numel() * steps if name == "mul_chain"
                  else batch * steps * 30)        # RK2 step: about 30
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        fields.update(bytes=nbytes, flops=flops,
-                      bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+        fields.update(kernel_bound(nbytes, flops, dtype))
+        fields.update(
+            latency_bound_ms=steps * DEPENDENT_OP_CLOCKS / (sm_mhz * 1e3),
+            latency_bound_by="latency", dependent_steps=steps,
+            clocks_per_step=DEPENDENT_OP_CLOCKS, sm_clock_mhz=sm_mhz)
         out[name] = fields
     # the probes' own path: one run at this size, counted
     probe_chain.reset_launch_counts()
@@ -727,6 +900,102 @@ def timed_solve(*args, **kwargs):
     return sol, time.perf_counter() - t0, read_counts()
 
 
+def parent_metrics(lib):
+    """The `forward_metrics_<type>` functions of another checkout's forward
+    library, by type, each taking this tree's arguments (ptrs, B, T, K, geo,
+    stream). A library that exports `forward_metrics_geometry` takes the
+    geometry as this tree's does; an older one (its K3 of one thread per
+    candidate) has no such argument, and it is dropped."""
+    has_geo = hasattr(lib, "forward_metrics_geometry")
+    out = {}
+    for sfx_ in ("f32", "f64"):
+        fn = getattr(lib, f"forward_metrics_{sfx_}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int]
+                       + [ctypes.POINTER(ctypes.c_int)] * has_geo
+                       + [ctypes.c_void_p])
+        out[sfx_] = fn if has_geo else (
+            lambda fn: lambda ptrs, B, T, K, geo, stream: fn(ptrs, B, T, K,
+                                                             stream))(fn)
+    return out
+
+
+class _ParentMetrics:
+    """A forward library whose metrics kernels come from another build;
+    everything else from the library it wraps."""
+
+    def __init__(self, parent, current):
+        self.metrics, self.current = parent_metrics(parent), current
+
+    def __getattr__(self, name):
+        if name.startswith("forward_metrics_"):
+            return self.metrics[name.rsplit("_", 1)[1]]
+        return getattr(self.current, name)
+
+
+def parent_library(problem, parent_dir):
+    """The forward library of another checkout (the parent commit unpacked
+    into `parent_dir`), built from its own sources under another stem; the
+    wrapper's object for it launches that checkout's metrics kernels and
+    this tree's trial kernels."""
+    src = Path(parent_dir) / "ipddp2tpu_torch/ops/csrc/forward_pass.cu"
+    model, nx, nu, nc, mask = (problem.device_model, problem.nx, problem.nu,
+                               problem.nc, sum(1 << i for i in
+                                               problem.compl_indices))
+    path = build.finish(build.start(
+        f"forward_pass_parent_{model}_nx{nx}_nu{nu}_nc{nc}_m{mask}", src,
+        defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}", f"COMPL_MASK={mask}",
+                 f'MODEL_HEADER="models/{model}.cuh"'),
+        depends=(src.parent / "models" / f"{model}.cuh",
+                 *sorted(src.parent.glob("*.cuh")))))
+    current = forward_cuda._library(problem)
+    return types.SimpleNamespace(
+        lib=_ParentMetrics(ctypes.CDLL(str(path)), current.lib),
+        theta_dim=current.theta_dim)
+
+
+def parent_and_change(parent_dir, prob, forward_main, K, solve_args,
+                      options, reps):
+    """K3 of the parent checkout and of this tree, in turns parent, change,
+    change, parent inside this one process: K3's time in both types on the
+    main shapes (graph replay), and the main path's hybrid solve."""
+    key = forward_cuda._key(prob)
+    current = forward_cuda._library(prob)
+    libs = {"parent": parent_library(prob, parent_dir), "change": current}
+    # the two kernels agree on the main shapes
+    same = {}
+    for dtype, fa in forward_main.items():
+        gammas = candidate_steps(K, dtype, fa[6].device)
+        outs = {}
+        for which, lib in libs.items():
+            forward_cuda._libs[key] = lib
+            outs[which] = forward_metrics_cuda(*fa, gammas)
+        torch.cuda.synchronize()
+        same[str(dtype)] = max(
+            float((p_.to(torch.float64) - c_.to(torch.float64)).abs()
+                  .nan_to_num(posinf=0.0, neginf=0.0).max())
+            for p_, c_ in zip(outs["parent"], outs["change"]))
+    turns = []
+    for which in ("parent", "change", "change", "parent"):
+        forward_cuda._libs[key] = libs[which]
+        k3 = {}
+        for dtype, fa in forward_main.items():
+            gammas = candidate_steps(K, dtype, fa[6].device)
+            k3[str(dtype)] = graph_ms(
+                lambda: forward_metrics_cuda(*fa, gammas), reps)
+        sol, wall, counts = timed_solve(*solve_args[:4], theta=solve_args[4],
+                                        options=options)
+        turns.append(dict(
+            which=which, k3_ms=k3, solve_seconds=wall,
+            solved=int(sol.converged.sum()),
+            lane0_iterations=int(sol.iterations[0]),
+            lane0_objective=float(sol.objective[0]),
+            forward_metrics_launches=counts["forward_metrics_f64"]))
+    forward_cuda._libs[key] = current
+    return dict(max_abs_diff_parent_vs_change=same, turns=turns)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=2048)
@@ -738,6 +1007,10 @@ def main():
                     help="stop after the kernels and probes phases")
     ap.add_argument("--log", default=None,
                     help="also append every phase line to this file")
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a checkout of the parent commit: time its "
+                         "forward-metrics kernel against this tree's, in "
+                         "turns, and the hybrid solve with each")
     a = ap.parse_args()
     global LOG
     LOG = a.log
@@ -755,8 +1028,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
     emit("device", kind=kind, capability=list(cap), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         sm_clock_max_mhz=sm_mhz, torch=torch.__version__,
+         cuda=torch.version.cuda)
     assert cap == (9, 0), f"built for sm_90a, found capability {cap}"
 
     # ---- build: every library in one parallel round ----------------------
@@ -840,13 +1118,15 @@ def main():
             launches=0, launches_by_path={},
             max_abs_err=max(f["max_abs_err"] for f in field_sets),
             max_rel_err=max(f["max_rel_err"] for f in field_sets),
-            ms=main_f["ms"], plain_ms=main_f["plain_ms"],
+            ms=main_f["ms"], ms_eager=main_f["ms_eager"],
+            plain_ms=main_f["plain_ms"],
             bound_ms=main_f["bound_ms"], bound_by=main_f["bound_by"],
             library_ms=None)
         kernels.append(row)
         by_name[name] = row
 
     sfx = {torch.float32: "f32", torch.float64: "f64"}
+    forward_main = {}           # the forward kernels' concar inputs, by type
     sweep_replaces = {
         torch.float32: "ipddp2tpu/ops/backward_pallas.py:308",
         torch.float64: "ipddp2tpu/ops/backward_pallas_df64.py:418"}
@@ -923,9 +1203,25 @@ def main():
         m_t, t_t, bad_t = check_forward(f"forward/{sfx[dtype]}/tiny_nc0",
                                         targs_f, K, dtype, 0,
                                         need_both_flags=False)
-        emit("kernels", name=f"forward_metrics_{sfx[dtype]}",
-             dtype=str(dtype), K=K, concar=m_c, double_integrator=m_d,
-             tiny_nc0=m_t)
+        kname = f"forward_metrics_{sfx[dtype]}"
+        emit("kernels", name=kname, dtype=str(dtype), K=K, concar=m_c,
+             double_integrator=m_d, tiny_nc0=m_t,
+             geometry={str(k): metrics_geometry(
+                 prob.nx, prob.nu, prob.nc, k, dtype,
+                 theta.obstacles[0].numel())._asdict()
+                 for k in METRICS_KS})
+        # K3 alone at every K of METRICS_KS, on full and ragged batches of
+        # all three models; its time by batch size
+        emit("metrics_grid", name=kname, dtype=str(dtype),
+             max_rel_err={label: metrics_grid(
+                 f"{kname}/{label}", lanes_of(fa, a.batch), dtype, a.batch)
+                 for label, fa in (("concar", fargs),
+                                   ("double_integrator", dargs),
+                                   ("tiny_nc0", targs_f))})
+        emit("metrics_scaling", name=kname, dtype=str(dtype), K=K, T=prob.T,
+             ms_by_batch=metrics_scaling(fargs, dtype, K,
+                                         (256, 1024, 2048, 8192), 10))
+        forward_main[dtype] = fargs
         emit("kernels", name=f"forward_trial_{sfx[dtype]}", dtype=str(dtype),
              concar=t_c, double_integrator=t_d, tiny_nc0=t_t)
         failures = bad_c + bad_d + bad_t
@@ -940,7 +1236,8 @@ def main():
     probe_rows = (("mul_chain", "scripts/tpu_dd_probe.py:49"),
                   ("dynamics_chain", "scripts/tpu_dd_probe.py:98"))
     for dtype in (torch.float32, torch.float64):
-        fields, counts = check_probes(dtype, dev, a.batch, prob.T, a.seed + 3)
+        fields, counts = check_probes(dtype, dev, a.batch, prob.T, a.seed + 3,
+                                      sm_mhz)
         emit("probes", dtype=str(dtype), batch=a.batch, steps=prob.T,
              launches=counts, **fields)
         for pname, replaces in probe_rows:
@@ -1081,6 +1378,12 @@ def main():
                                    iters=5)
     emit("phases", ms_per_iteration=split, batch=a.batch, K=K,
          stepping_lanes_where_hybrid_and_backtracking_differ=differing)
+
+    # ---- parent_and_change: K3 of the parent commit against this tree ----
+    if a.parent:
+        emit("parent_and_change", parent=a.parent, batch=a.batch, K=K,
+             **parent_and_change(a.parent, prob, forward_main, K,
+                                 (prob, bounds, x1, u0, theta), hyb64, 10))
 
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}), flush=True)

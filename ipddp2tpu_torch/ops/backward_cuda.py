@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from . import build as _build
+from .build import SMEM_LIMIT, dense
 
 SOURCE = _build.CSRC / "backward_sweep.cu"
 
@@ -52,9 +53,7 @@ _KERNEL_OF = {torch.float32: "backward_sweep_f32",
               torch.float64: "backward_sweep_f64"}
 _libs = {}
 _N_PTRS = 33
-# shared memory one block may use on an H100 (227 KB), and the largest
-# group of lanes that can own an instance (one warp)
-SMEM_LIMIT = 232448
+# the largest group of lanes that can own an instance (one warp)
 MAX_KKT = 32
 # the inputs that stay the same over the attempts of one backward pass
 _FIXED = ("fx", "fu", "lx", "lu", "lxx", "lux", "luu", "cx", "cu", "sec",
@@ -130,6 +129,7 @@ def start_build(nx: int, nu: int, nc: int, verbose: bool = False,
     return _build.start(f"backward_sweep_nx{nx}_nu{nu}_nc{nc}{tag}", SOURCE,
                         defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}",
                                  f"IPB={geo.instances_per_block}", *defines),
+                        depends=(_build.CSRC / "async_copy.cuh",),
                         verbose=verbose)
 
 
@@ -199,13 +199,6 @@ def _check(named, want, dtype, device):
                 f"{device}")
 
 
-def _dense(a):
-    """Dense row-major and starting on a 16-byte boundary, as the kernel's
-    16-byte asynchronous copies need; a copy only where `a` is not."""
-    a = a.contiguous()
-    return a.clone() if a.data_ptr() % 16 else a
-
-
 class SweepInputs(NamedTuple):
     """What `prepare_sweep` returns: the 19 inputs that the attempts of one
     backward pass share, checked and (on a GPU) packed for the kernel."""
@@ -233,7 +226,7 @@ def prepare_sweep(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
     if dtype not in _KERNEL_OF:
         raise TypeError(f"backward_sweep_cuda: unsupported dtype {dtype}")
     launch_geometry(nx, nu, nc)          # refuses what the kernel cannot take
-    return SweepInputs(tuple(_dense(a) for a in named.values()), nx, nu, nc)
+    return SweepInputs(tuple(dense(a) for a in named.values()), nx, nu, nc)
 
 
 def sweep_prepared(prepared: SweepInputs, reg, delta_c, *, refine, rtol,

@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
+# shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232448
 
 
 class Build(NamedTuple):
@@ -104,14 +106,26 @@ def finish_all(builds, verbose: bool = False, logs=None):
     return paths
 
 
+def dense(a):
+    """Dense row-major and starting on a 16-byte boundary, as the kernels'
+    16-byte asynchronous copies (`csrc/async_copy.cuh`) need; a copy only
+    where `a` is not."""
+    a = a.contiguous()
+    return a.clone() if a.data_ptr() % 16 else a
+
+
 def ptxas_report(log: str) -> dict:
     """Registers, spills, stack and static shared memory of every kernel in
-    an `nvcc -Xptxas -v` log, by (demangled enough) kernel name and type."""
+    an `nvcc -Xptxas -v` log, by (demangled enough) kernel name, type and
+    integer template argument if any (`forward_metrics_kernel<double, 4>`)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([fd])E", line)
+        m = re.search(r"Compiling entry function "
+                      r"'_Z\d+(\w+?)I([fd])(?:Li(\d+)E)?E", line)
         if m:
-            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+            kind = "float" if m.group(2) == "f" else "double"
+            arg = "" if m.group(3) is None else f", {m.group(3)}"
+            name = f"{m.group(1)}<{kind}{arg}>"
             out[name] = {}
             continue
         if name is None:

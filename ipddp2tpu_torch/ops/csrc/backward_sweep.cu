@@ -113,6 +113,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 #if !defined(NX) || !defined(NU) || !defined(NC) || !defined(IPB)
 #error "define NX, NU, NC and IPB"
 #endif
@@ -209,29 +211,6 @@ struct SweepArgs {
 
 template <typename T>
 __device__ __forceinline__ bool finite_(T v) { return isfinite(v); }
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_8(void* dst, const void* src) {
-    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
-    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most one committed group of this thread is still in flight
-__device__ __forceinline__ void cp_async_wait_but_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // One contiguous run of LEN values, copied by the G lanes of a group: in
 // 16-byte pieces when the run's size is a multiple of 16 bytes (source and

@@ -16,16 +16,23 @@ with the problem's Python functions. A wrapper takes the plain version only
 for tensors that lie on the CPU. For CUDA tensors it launches the kernel or
 raises; there is no fallback, not on a failed build either.
 
-Bound on this card: bytes (each instance reads some 230 values per stage
-once; the arithmetic is far below the vector rate). The trial kernel is laid
-out for that bound: a group of 16 lanes of a warp owns an instance, the rows
-of the update law are dealt over the lanes so that a group's loads cover
-whole runs of an instance's stage, each lane loads its rows of stage t+1
-before stage t's model runs, and every value is stored by the lane that
-holds it. The metrics kernel still has one thread per (instance, candidate)
-on the solver's `[B, T, ...]` layout as it is and does not reach the bound;
-see the source's header. Both take the solver's dense tensors: nothing is
-re-laid out in the wrappers.
+Bound on this card: bytes (each instance reads 248 values per stage once;
+the arithmetic is far below the vector rate), and in the way of it the
+instructions one lane runs per stage. Both kernels deal the rows of the
+update law over lanes. The trial kernel: a group of 16 lanes of a warp owns
+an instance, its loads cover whole runs of an instance's stage, each lane
+loads its rows of stage t+1 before stage t's model runs, and every value is
+stored by the lane that holds it. The metrics kernel: a warp owns an
+instance and all K of its candidates, which share one copy of each stage in
+shared memory, brought in by asynchronous copies one stage ahead; a
+candidate is owned by the largest power of two of lanes <= 32 / K (chunks
+of 32 candidates above K = 32), its 3 nu + nc rows dealt over those lanes.
+`metrics_geometry` computes that layout here in Python; the wrapper passes
+it to the library, which refuses a launch with another one, and checks it
+against the library's own at load. See the source's header. Both take the
+solver's dense tensors: nothing is re-laid out in the wrappers (a tensor
+whose base is not 16-byte aligned is copied, as the asynchronous copies
+need it).
 
 Build: one library per (device model, nx, nu, nc, complementarity rows),
 under `ops/_build/` at first use, by `ops/build.py`.
@@ -34,11 +41,13 @@ under `ops/_build/` at first use, by `ops/build.py`.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
 
 from . import build as _build
+from .build import SMEM_LIMIT, dense
 from ..derivatives import batched_stage, batched_terminal_cost
 from ..problem import Problem
 
@@ -59,6 +68,54 @@ _STAGE_INPUTS = ("xbar", "ubar", "phibar", "zlbar", "zubar", "ilbar", "iubar")
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+class MetricsGeometry(NamedTuple):
+    """How the metrics kernel lays K candidates over the card."""
+
+    lanes: int                  # lanes of a warp that own one candidate
+    chunks: int                 # passes over the stages, 32 / lanes each
+    instances_per_block: int    # one warp each
+    threads: int                # per block
+    smem_bytes: int             # per block
+
+
+def _metrics_instance_values(nx: int, nu: int, nc: int, theta_dim: int,
+                             itemsize: int) -> int:
+    """Values of shared memory per instance: the layout `MLay<T>` of the
+    source (two stage buffers, then theta)."""
+    a = 16 // itemsize
+    up = lambda n: -(-n // a) * a
+    nr = 3 * nu + nc
+    lo = up(up(2 * nr) + nr * nx)           # after bar, ff, fb
+    stage = up(up(lo + 4 * nu) + nx)        # lo, hi, ilbar, iubar, xbar
+    return up(2 * stage + theta_dim)
+
+
+def metrics_geometry(nx: int, nu: int, nc: int, K: int, dtype,
+                     theta_dim: int = 0) -> MetricsGeometry:
+    """Lanes per candidate (the largest power of two <= 32 / K, at least 1),
+    chunks of candidates, instances, threads and shared bytes per block of
+    the metrics kernel. A block is 4 warps where its shared memory fits the
+    card's 227 KB, else 2, else 1. Raises ValueError for K < 1 and for a
+    model whose one instance does not fit, TypeError for other dtypes."""
+    itemsize = {torch.float32: 4, torch.float64: 8}.get(dtype)
+    if itemsize is None:
+        raise TypeError(f"forward metrics kernel: unsupported dtype {dtype}")
+    if K < 1:
+        raise ValueError(f"forward metrics kernel: K = {K} candidates")
+    lanes = 1 << max(32 // K, 1).bit_length() - 1
+    per_chunk = 32 // lanes
+    per_instance = _metrics_instance_values(nx, nu, nc, theta_dim,
+                                            itemsize) * itemsize
+    for warps in (4, 2, 1):
+        if warps * per_instance <= SMEM_LIMIT:
+            return MetricsGeometry(lanes, -(-K // per_chunk), warps,
+                                   32 * warps, warps * per_instance)
+    raise ValueError(
+        f"forward metrics kernel: nx={nx}, nu={nu}, nc={nc} needs "
+        f"{per_instance} bytes of shared memory for one instance, the card "
+        f"has {SMEM_LIMIT} (227 KB) a block")
 
 
 def _model_header(problem: Problem):
@@ -90,7 +147,8 @@ def start_build(problem: Problem, verbose: bool = False):
         f"forward_pass_{model}_nx{nx}_nu{nu}_nc{nc}_m{mask}", SOURCE,
         defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}", f"COMPL_MASK={mask}",
                  f'MODEL_HEADER="models/{header.name}"'),
-        depends=(header, _build.CSRC / "scalar_math.cuh"), verbose=verbose)
+        depends=(header, _build.CSRC / "scalar_math.cuh",
+                 _build.CSRC / "async_copy.cuh"), verbose=verbose)
 
 
 def build(problems, verbose: bool = False):
@@ -105,11 +163,12 @@ class _Library:
         path, = build([problem])
         lib = ctypes.CDLL(str(path))
         ptrs = ctypes.POINTER(ctypes.c_void_p)
+        ints = ctypes.POINTER(ctypes.c_int)
         for sfx in _SUFFIX.values():
             m = getattr(lib, f"forward_metrics_{sfx}")
             m.restype = ctypes.c_int
             m.argtypes = [ptrs, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p]
+                          ints, ctypes.c_void_p]
             t = getattr(lib, f"forward_trial_{sfx}")
             t.restype = ctypes.c_int
             t.argtypes = [ptrs, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -123,6 +182,24 @@ class _Library:
                                f"the problem has {want}")
         self.lib = lib
         self.theta_dim = int(dims[3])
+        self._check_geometry(problem, path.name)
+
+    def _check_geometry(self, problem: Problem, name: str):
+        """The metrics geometry computed here against the library's own,
+        for every K up to 64 in both types."""
+        fn = self.lib.forward_metrics_geometry
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        got = (ctypes.c_int * 5)()
+        for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
+            for K in range(1, 65):
+                want = metrics_geometry(problem.nx, problem.nu, problem.nc,
+                                        K, dtype, self.theta_dim)
+                if fn(K, itemsize, got) != 0 or list(got) != list(want):
+                    raise RuntimeError(
+                        f"{name}: metrics geometry at K={K}, {dtype} is "
+                        f"{list(got)}, the wrapper computed {list(want)}")
 
 
 def _library(problem: Problem) -> _Library:
@@ -142,8 +219,12 @@ def _flat_theta(theta, B: int, dtype, device, width: int):
             raise ValueError(
                 f"theta leaf {tuple(leaf.shape)} {leaf.dtype} on "
                 f"{leaf.device}: expected [{B}, ...] {dtype} on {device}")
-    flat = (torch.cat([leaf.reshape(B, -1) for leaf in leaves], dim=1)
-            if leaves else None)
+    if not leaves:
+        flat = None
+    elif len(leaves) == 1:              # a view where the leaf is dense
+        flat = leaves[0].reshape(B, -1)
+    else:
+        flat = torch.cat([leaf.reshape(B, -1) for leaf in leaves], dim=1)
     got = 0 if flat is None else flat.shape[1]
     if got != width:
         raise ValueError(f"theta has {got} values per instance, the "
@@ -267,9 +348,10 @@ def forward_trial_plain(problem: Problem, theta, lo, hi, gains,
 
 
 def _launch(kind: str, problem: Problem, theta, named, B, dtype, device,
-            outputs, n_before, extra):
+            outputs, n_before, K=None):
     """Launch `forward_<kind>_<dtype>` with the named inputs and the output
-    tensors placed after `n_before` null pointers."""
+    tensors placed after `n_before` null pointers; the metrics kernel gets
+    K and its geometry."""
     if device.type != "cuda":
         raise RuntimeError(f"forward_{kind}_cuda: unsupported device "
                            f"{device}")
@@ -278,13 +360,14 @@ def _launch(kind: str, problem: Problem, theta, named, B, dtype, device,
         raise TypeError(f"forward_{kind}_cuda: unsupported dtype {dtype}")
     library = _library(problem)
     theta_flat = _flat_theta(theta, B, dtype, device, library.theta_dim)
-    # the kernels read dense row-major tensors; the packed copies are
-    # dropped when this function returns, before the kernel has run: the
-    # caching allocator hands their memory only to later work on this stream
+    # the kernels read dense row-major tensors starting on 16 bytes; the
+    # packed copies are dropped when this function returns, before the
+    # kernel has run: the caching allocator hands their memory only to later
+    # work on this stream
     order = ("lo", "hi") + _STAGE_INPUTS + (
         "alpha", "beta", "psi", "omega", "chi_l", "zeta_l", "chi_u",
         "zeta_u")
-    ins = [named[k].contiguous() for k in order]
+    ins = [dense(named[k]) for k in order]
     tail = [named[k].contiguous() for k in ("mu", "tau", "gamma")]
     addr = ([t.data_ptr() for t in ins]
             + [None if theta_flat is None else theta_flat.data_ptr()]
@@ -293,6 +376,11 @@ def _launch(kind: str, problem: Problem, theta, named, B, dtype, device,
     outs[n_before:n_before + len(outputs)] = [t.data_ptr() for t in outputs]
     ptrs = (ctypes.c_void_p * _N_PTRS)(*addr, *outs)
     name = f"forward_{kind}_{sfx}"
+    extra = ()
+    if K is not None:
+        geo = metrics_geometry(problem.nx, problem.nu, problem.nc, K, dtype,
+                               library.theta_dim)
+        extra = (K, (ctypes.c_int * 5)(*geo))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(library.lib, name)(ptrs, B, problem.T, *extra,
@@ -328,8 +416,9 @@ def forward_metrics_cuda(problem: Problem, theta, lo, hi, gains,
     new = lambda dt: torch.empty((B, K), dtype=dt, device=device)
     outs = (new(dtype), new(dtype), new(dtype), new(torch.bool),
             new(torch.bool))
-    _launch("metrics", problem, theta, named, B, dtype, device, outs, 0,
-            (K,))
+    if K > 0:
+        _launch("metrics", problem, theta, named, B, dtype, device, outs, 0,
+                K=K)
     return outs
 
 
@@ -358,5 +447,5 @@ def forward_trial_cuda(problem: Problem, theta, lo, hi, gains,
                                  new(T, nu), new(T, nu), new(T, nu),
                                  new(T, nc))
     _launch("trial", problem, theta, named, B, dtype, device,
-            (x, u, phi, zl, zu, il, iu, c), 5, ())
+            (x, u, phi, zl, zu, il, iu, c), 5)
     return x, u, phi, zl, zu, il, iu, c

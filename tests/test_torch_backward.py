@@ -10,6 +10,8 @@ Tolerance: rtol 1e-9 / atol 1e-11 in float64, as tests/test_backward_pallas.py
 holds the Pallas kernel to its scan (same arithmetic, other summation order,
 amplified by the KKT conditioning); float32 at rtol 2e-3 / atol 2e-4."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,10 +34,17 @@ B = 4
 GAINS = pb.Gains._fields
 
 
-def _jax_side(jp, inp, mu, reg, dc, force_fail_lane=None, kernel=False):
-    """JAX deriv/nominal/second for the tiny inputs, and one sweep at fixed
-    (mu, reg, dc) by the scan (or the interpret-mode Pallas kernel)."""
-    x, u, phi = (jnp.asarray(inp[k]) for k in ("x", "u", "phi"))
+@functools.cache
+def _problems(nc, bad_cost=False):
+    """One pair of problems of each kind for the whole module, so that the
+    JAX side compiles once per kind and shape."""
+    return tiny_problems(nc)(bad_cost=bad_cost)
+
+
+@functools.partial(jax.jit, static_argnames=("jp", "force_fail_lane",
+                                             "kernel"))
+def _jax_sweep(jp, x, u, phi, nominal, mu, reg, dc, force_fail_lane,
+               kernel):
     deriv = jax.vmap(lambda a, b, c: jd.evaluate_derivatives(
         jp, None, a, b, c))(x, u, phi)
     if force_fail_lane is not None:
@@ -46,8 +55,6 @@ def _jax_side(jp, inp, mu, reg, dc, force_fail_lane=None, kernel=False):
     second = deriv.cH_phi + jax.vmap(
         lambda a, b, l: jd.contract_dynamics_hessian(jp, None, a, b, l))(
             x, u, lam[:, 1:])
-    nominal = tuple(jnp.asarray(inp[k])
-                    for k in ("c", "il", "iu", "phi", "zl", "zu"))
     dt = x.dtype
     mu, reg, dc = (jnp.asarray(v, dt) for v in (mu, reg, dc))
     opts = J.Options()
@@ -62,7 +69,20 @@ def _jax_side(jp, inp, mu, reg, dc, force_fail_lane=None, kernel=False):
             lambda d, n, s, m, r, c: jb._run_pass(jp, d, n, m, r, c, opts,
                                                   second=s))(
             deriv, nominal, second, mu, reg, dc)
-    return deriv, nominal, second, lam, (tuple(gains), dL, fail, sing)
+    return deriv, second, lam, (tuple(gains), dL, fail, sing)
+
+
+def _jax_side(jp, inp, mu, reg, dc, force_fail_lane=None, kernel=False):
+    """JAX deriv/nominal/second for the tiny inputs, and one sweep at fixed
+    (mu, reg, dc) by the scan (or the interpret-mode Pallas kernel),
+    compiled as one function."""
+    x, u, phi = (jnp.asarray(inp[k]) for k in ("x", "u", "phi"))
+    nominal = tuple(jnp.asarray(inp[k])
+                    for k in ("c", "il", "iu", "phi", "zl", "zu"))
+    deriv, second, lam, out = _jax_sweep(
+        jp, x, u, phi, nominal, np.asarray(mu), np.asarray(reg),
+        np.asarray(dc), force_fail_lane=force_fail_lane, kernel=kernel)
+    return deriv, nominal, second, lam, out
 
 
 def _torch_side(pp, deriv, nominal, second, mu, reg, dc, dtype):
@@ -95,7 +115,7 @@ def _compare(out, ref, rtol, atol):
 @pytest.mark.parametrize("kernel", [False, True], ids=["scan", "pallas"])
 @pytest.mark.parametrize("nc", [2, 0])
 def test_run_pass_matches_jax(nc, kernel):
-    jp, pp = tiny_problems(nc)()
+    jp, pp = _problems(nc)
     inp = tiny_inputs(0, B, nc)
     mu, reg, dc = _scalars(0)
     deriv, nominal, second, _, ref = _jax_side(jp, inp, mu, reg, dc,
@@ -110,7 +130,7 @@ def test_run_pass_matches_jax(nc, kernel):
 def test_forced_failure_lane_matches_jax(kernel):
     """Lane 2's control Hessian is made indefinite: wrong inertia there, and
     only there, on both sides; the other lanes' gains are untouched."""
-    jp, pp = tiny_problems(2)()
+    jp, pp = _problems(2)
     inp = tiny_inputs(1, B, 2)
     mu, reg, dc = np.full(B, 0.1), np.full(B, 0.5), np.zeros(B)
     deriv, nominal, second, _, ref = _jax_side(
@@ -122,7 +142,7 @@ def test_forced_failure_lane_matches_jax(kernel):
 
 
 def test_run_pass_float32_matches_jax():
-    jp, pp = tiny_problems(2)()
+    jp, pp = _problems(2)
     inp = tiny_inputs(2, B, 2, np.float32)
     mu, reg, dc = np.full(B, 0.1), np.full(B, 0.5), np.zeros(B)
     deriv, nominal, second, _, ref = _jax_side(jp, inp, mu, reg, dc)
@@ -137,7 +157,7 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     """`backward_sweep_cuda` takes the plain version for CPU tensors (and
     only for those), checks its arguments, and counts no launch."""
     from ipddp2tpu_torch.ops import backward_cuda
-    jp, pp = tiny_problems(2)()
+    jp, pp = _problems(2)
     inp = tiny_inputs(3, B, 2)
     mu, reg, dc = _scalars(3)
     deriv, nominal, second, _, _ = _jax_side(jp, inp, mu, reg, dc)
@@ -163,7 +183,7 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
 
 def test_cuda_kernel_option_raises_off_gpu():
     """backward_kernel="cuda" never gives way to the plain version."""
-    jp, pp = tiny_problems(2)()
+    jp, pp = _problems(2)
     inp = tiny_inputs(3, B, 2)
     mu, reg, dc = _scalars(3)
     deriv, nominal, second, _, _ = _jax_side(jp, inp, mu, reg, dc)
@@ -177,7 +197,7 @@ def test_cuda_kernel_option_raises_off_gpu():
 
 def test_costate_scan_matches_jax_seq():
     """Same recursion in the same order: rtol 1e-13."""
-    jp, pp = tiny_problems(2)()
+    jp, pp = _problems(2)
     inp = tiny_inputs(4, B, 2)
     deriv, _, _, lam, _ = _jax_side(jp, inp, *_scalars(4))
     out = pb.costate_scan(convert.deriv_from_numpy(deriv),
@@ -191,7 +211,7 @@ def test_backward_pass_ladder_matches_jax(reg_last):
     """Indefinite stage cost: the ladder takes several bumps, and lanes need
     different numbers of them. Same final reg, delta_c and status per lane;
     gains at rtol 1e-8 (as the JAX ladder-parity test)."""
-    jp, pp = tiny_problems(2)(bad_cost=True)
+    jp, pp = _problems(2, bad_cost=True)
     inp = tiny_inputs(1, B, 2)
     # spread the lanes over the ladder: scale the duals lane by lane
     scale = np.array([1.0, 30.0, 1e3, 3e4])[:, None, None]
@@ -212,7 +232,7 @@ def test_backward_pass_ladder_matches_jax(reg_last):
                                second=second)
         return deriv, second, res
 
-    deriv, second, ref = jax.vmap(one)(x, u, phi, nominal)
+    deriv, second, ref = jax.jit(jax.vmap(one))(x, u, phi, nominal)
     d = convert.deriv_from_numpy(deriv)
     n = tuple(torch.as_tensor(np.asarray(a)) for a in nominal)
     out = pb.backward_pass(
@@ -236,7 +256,7 @@ def test_backward_pass_ladder_matches_jax(reg_last):
 def test_ladder_gives_up_above_reg_max():
     """A lane whose ladder runs out (reg_max small) ends with status 1 and
     the last reg it tried; the lanes that pass are not disturbed."""
-    jp, pp = tiny_problems(2)(bad_cost=True)
+    jp, pp = _problems(2, bad_cost=True)
     inp = tiny_inputs(1, B, 2)
     opts_j = J.Options(backward_kernel="xla", reg_max=1e-3)
     x, u, phi = (jnp.asarray(inp[k]) for k in ("x", "u", "phi"))
@@ -249,7 +269,7 @@ def test_ladder_gives_up_above_reg_max():
         return deriv, jb.backward_pass(jp, deriv, nom, jnp.asarray(0.1),
                                        jnp.asarray(0.0), opts_j)
 
-    deriv, ref = jax.vmap(one)(x, u, phi, nominal)
+    deriv, ref = jax.jit(jax.vmap(one))(x, u, phi, nominal)
     out = pb.backward_pass(
         pp, convert.deriv_from_numpy(deriv),
         tuple(torch.as_tensor(np.asarray(a)) for a in nominal),
@@ -264,7 +284,7 @@ def _ladder_case(reg_last, force_fail_lane=None):
     """The indefinite-cost tiny problem with the lanes spread over the
     ladder, in the port's types: (problem, deriv, nominal, second, mu,
     reg_last)."""
-    jp, pp = tiny_problems(2)(bad_cost=True)
+    jp, pp = _problems(2, bad_cost=True)
     inp = tiny_inputs(1, B, 2)
     scale = np.array([1.0, 30.0, 1e3, 3e4])[:, None, None]
     inp["zl"], inp["zu"] = inp["zl"] * scale, inp["zu"] * scale
@@ -358,8 +378,8 @@ def test_launch_geometry(dims, lanes, per_block, f32, f64):
     """G is the smallest power of two >= nu + nc, a block is 4 warps, and
     the shared memory follows the source's layout (every run of the two
     stage buffers padded to 16 bytes)."""
-    from ipddp2tpu_torch.ops.backward_cuda import (SMEM_LIMIT,
-                                                   launch_geometry)
+    from ipddp2tpu_torch.ops.backward_cuda import launch_geometry
+    from ipddp2tpu_torch.ops.build import SMEM_LIMIT
     geo = launch_geometry(*dims)
     assert geo.lanes == lanes and geo.lanes >= dims[1] + dims[2]
     assert geo.instances_per_block == per_block

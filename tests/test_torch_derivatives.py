@@ -34,14 +34,16 @@ def concar_case():
     jth = jconcar.Theta(jnp.asarray(inst["obstacles"]))
     pth = pconcar.Theta(torch.as_tensor(inst["obstacles"]))
     jx, ju, jphi = map(jnp.asarray, (x, u, phi))
+    # compiled once each: eager dispatch of the vmapped derivatives is slow
+    batched = lambda f: jax.jit(jax.vmap(f))
     ref = dict(
-        deriv=jax.vmap(lambda th, a, b, c: jd.evaluate_derivatives(
+        deriv=batched(lambda th, a, b, c: jd.evaluate_derivatives(
             jp, th, a, b, c, with_dynamics_hessian=True))(jth, jx, ju, jphi),
-        contract=jax.vmap(lambda th, a, b, l: jd.contract_dynamics_hessian(
+        contract=batched(lambda th, a, b, l: jd.contract_dynamics_hessian(
             jp, th, a, b, l))(jth, jx, ju, jnp.asarray(lam)),
-        objective=jax.vmap(lambda th, a, b: jd.evaluate_objective(
+        objective=batched(lambda th, a, b: jd.evaluate_objective(
             jp, th, a, b))(jth, jx, ju),
-        constraints=jax.vmap(lambda th, a, b: jd.evaluate_constraints(
+        constraints=batched(lambda th, a, b: jd.evaluate_constraints(
             jp, th, a, b))(jth, jx, ju))
     tx, tu, tphi = map(torch.as_tensor, (x, u, phi))
     out = dict(

@@ -41,13 +41,13 @@ def case():
     bounds, x1, u0, theta = jax_concar_args(inst)
     jo = J.Options(backward_kernel="xla", forward_kernel="xla", **OPTS)
 
-    def mid(k):
-        def one(b, x, u, th):
-            s = j_initialize(jp, th, b, x, u, jo)
-            return j_run(jp, b, s, th, jo, k_limit=k)
-        return jax.vmap(one)(bounds, x1, u0, theta)
+    def one(b, x, u, th, k):
+        s = j_initialize(jp, th, b, x, u, jo)
+        return j_run(jp, b, s, th, jo, k_limit=k)
 
-    s0, s1 = mid(0), mid(6)
+    # one compiled solve serves both iteration limits (a runtime argument)
+    mid = jax.jit(jax.vmap(one, in_axes=(0, 0, 0, 0, None)))
+    s0, s1 = mid(bounds, x1, u0, theta, 0), mid(bounds, x1, u0, theta, 6)
     # lanes 0,1 from the start, lanes 2,3 from six iterations in
     state = jax.tree.map(
         lambda a, b: jnp.concatenate([a[:2], b[2:]], axis=0), s0, s1)
@@ -64,7 +64,7 @@ def case():
                              s.min_primal_1, s.filter_pts, jo)
         return bw.gains, bw.dL, trial1, fw
 
-    gains, dL, trial_q, fw = jax.vmap(fwd)(bounds, theta, state)
+    gains, dL, trial_q, fw = jax.jit(jax.vmap(fwd))(bounds, theta, state)
 
     pb_, _, _, pth = torch_concar_args(inst)
     ps = convert.state_from_numpy(state)

@@ -52,16 +52,16 @@ TRIAL_ORDER = ("x", "u", "phi", "zl", "zu", "il", "iu", "c_raw")
 
 
 def _jax_mid_state(jp, inst, jo, ks, split):
-    """Lanes [:split] after ks[0] iterations, the rest after ks[1]."""
+    """Lanes [:split] after ks[0] iterations, the rest after ks[1]. One
+    compiled solve serves both iteration limits (a runtime argument)."""
     bounds, x1, u0, theta = jax_concar_args(inst)
 
-    def mid(k):
-        def one(b, x, u, th):
-            s = j_initialize(jp, th, b, x, u, jo)
-            return j_run(jp, b, s, th, jo, k_limit=k)
-        return jax.vmap(one)(bounds, x1, u0, theta)
+    def one(b, x, u, th, k):
+        s = j_initialize(jp, th, b, x, u, jo)
+        return j_run(jp, b, s, th, jo, k_limit=k)
 
-    s0, s1 = mid(ks[0]), mid(ks[1])
+    mid = jax.jit(jax.vmap(one, in_axes=(0, 0, 0, 0, None)))
+    s0, s1 = (mid(bounds, x1, u0, theta, k) for k in ks)
     state = jax.tree.map(
         lambda a, b: jnp.concatenate([a[:split], b[split:]], axis=0), s0, s1)
     return bounds, theta, state
@@ -119,7 +119,8 @@ def case():
     ps = convert.state_from_numpy(state)
     pg = convert.gains_from_numpy(ref["gains"])
     pdL = torch.as_tensor(np.array(ref["dL"]))
-    return dict(pp=pp, pb=pb, pth=pth, ps=ps, pg=pg, pdL=pdL, ref=ref)
+    return dict(pp=pp, pb=pb, pth=pth, ps=ps, pg=pg, pdL=pdL, ref=ref,
+                jax=(jp, bounds, theta, state))
 
 
 def _kernel_args(c, dtype=torch.float64):
@@ -228,27 +229,26 @@ def test_wrappers_refuse_wrong_shapes(case):
 # ---- the Pallas kernels in interpret mode, float32 -----------------------
 
 @pytest.fixture(scope="module")
-def pallas_case():
-    Bk, Kk, T = 4, 2, 6
-    jp, pp = short_concar(T)
-    inst = concar_instances(7, Bk, T=T)
-    jo = J.Options(backward_kernel="xla", forward_kernel="xla", **OPTS)
-    bounds, theta, state = _jax_mid_state(jp, inst, jo, (0, 6), 2)
-    bw = jax.vmap(lambda th, s: _jax_gains(jp, jo, th, s))(theta, state)
+def pallas_case(case):
+    """The case's state and gains in float32, K=2 candidates, through the
+    Pallas kernels in interpret mode and through the port's plain
+    versions."""
+    Kk = 2
+    jp, bounds, theta, state = case["jax"]
     f32 = lambda t: jax.tree.map(lambda a: a.astype(jnp.float32), t)
     s = f32(state)
-    tau = jnp.maximum(jo.tau_min, 1.0 - s.mu)
+    tau = jnp.maximum(J.Options().tau_min, 1.0 - s.mu)
     args = (jp, f32(theta), f32(bounds.lower), f32(bounds.upper),
-            tuple(f32(bw.gains)), s.x, s.u, s.phi, s.zl, s.zu, s.il, s.iu,
-            s.mu, tau)
+            tuple(f32(case["ref"]["gains"])), s.x, s.u, s.phi, s.zl, s.zu,
+            s.il, s.iu, s.mu, tau)
     gammas = 0.5 ** jnp.arange(Kk, dtype=jnp.float32)
-    gamma_b = gammas[jnp.arange(Bk) % Kk]
+    gamma_b = gammas[jnp.arange(B) % Kk]
     metrics = forward_metrics_pallas(*args, gammas, dd_mode=False,
                                      interpret=True)
     trial = forward_trial_pallas(*args, gamma_b, dd_mode=False,
                                  interpret=True)
     t32 = lambda a: torch.as_tensor(np.array(a))
-    pargs = (pp, type(torch_concar_args(inst)[3])(t32(args[1].obstacles)),
+    pargs = (case["pp"], type(case["pth"])(t32(args[1].obstacles)),
              t32(args[2]), t32(args[3]), tuple(t32(g) for g in args[4]),
              *(t32(a) for a in args[5:]))
     return dict(metrics=metrics, trial=trial,
