@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main paths on an NVIDIA H100, end to end.
 
     python3 chip_smoke.py [--batch 2048] [--max-iterations 1000] [--ptxas]
-                          [--kernels-only] [--log FILE] [--parent DIR]
+                          [--kernels-only] [--log FILE] [--turns]
+                          [--parent DIR]
 
 Needs one CUDA device of compute capability 9.0 and `nvcc`; with no device it
 exits non-zero at the first phase. It imports `torch` and `ipddp2tpu_torch`
@@ -35,16 +36,37 @@ only. Phases, each printing one JSON line:
              at 256 to 8192 lanes (`metrics_scaling`);
   probes     the two chain probes, driven once at their size;
   graphs     the rollout replayed from a CUDA graph equals the eager one;
-  solve_hybrid_f64  THE MAIN PATH: `solve_batch` on concar at its published
-             size (T=100), B instances (lane 0 = the reference's seed-1
-             instance), float64, tolerance 1e-7, hybrid line search (K=8
-             speculative step sizes, then backtracking) through the sweep,
-             forward-metrics and forward-trial kernels; checks lane 0
-             against the golden result and that >= 95 % of the lanes
-             converge; prints how the accepted step sizes are distributed;
+  solve_hybrid_f64  the flat solve in pure f64: `solve_batch` on concar at
+             its published size (T=100), B instances (lane 0 = the
+             reference's seed-1 instance), float64, tolerance 1e-7, hybrid
+             line search (K=8 speculative step sizes, then backtracking)
+             through the sweep, forward-metrics and forward-trial kernels;
+             checks lane 0 against the golden result and that >= 95 % of
+             the lanes converge; prints how the accepted step sizes are
+             distributed;
+  solve_mixed  THE MAIN PATH, as `bench.py` runs it: `solve_mixed_chunked` on
+             the same batch, an f32 bulk phase to 3e-4 (K1 and the f32
+             forward kernels), the f64 endgame compacted at rungs B/2 to
+             B/16, the restart rescue of the lanes that failed in f32 (f64
+             kernels on the compacted and padded batches); prints each
+             phase's seconds, lanes converged and iterations, the rungs
+             visited and the launches at each; checks lane 0 against the
+             golden objective (rtol 1e-4, dual error < 1e-7), that >= 95 %
+             of the lanes converge and that K1 ran; `mixed_vs_pure` puts
+             its wall time beside the flat solve's;
+  mixed_rescue  the first 128 lanes with a 120-iteration f32 phase in
+             chunks of 5, the stall freeze and the adaptive K: checks that
+             the rescue takes exactly the lanes phase 2 left unconverged and
+             solves >= 95 % of them;
+  residue    the 24 round-5 residue instances (the port's data file) through
+             the mixed solve and from scratch in pure f64: each lane's
+             status, iterations and KKT errors (checks that they are
+             finite);
+  turns      with --turns: the flat pure-f64 solve and the mixed solve in
+             turns on the same batch (pure, mixed, mixed, pure);
   solve_hybrid_f32  30 iterations of the same in float32;
   solve_f64  the pure backtracking path (graph-replayed plain rollout,
-             sweep kernel) at 256 lanes, same gates;
+             sweep kernel) at 64 lanes, same gates;
   backtrack_cuda  20 iterations of pure backtracking with the forward-trial
              kernel as the rollout;
   phases     a timed split of a few mid-solve iterations into the solver's
@@ -55,8 +77,9 @@ only. Phases, each printing one JSON line:
              time in both types and the hybrid solve with each.
 
 Any failed assertion or exception ends the run with a non-zero exit code and
-without the last line. The last three lines are the kernels' JSON object,
-the card's name and power limit, and the result object.
+without the last line. The last three lines are the kernels' JSON object
+(`launches`: the main path's, `solve_mixed`), the card's name and power
+limit, and the result object.
 """
 
 import argparse
@@ -71,7 +94,9 @@ from pathlib import Path
 
 import torch
 
-from ipddp2tpu_torch import Options, Problem, solve_batch
+from ipddp2tpu_torch import (Options, Problem, solve_batch, solve_chunked,
+                             solve_mixed_chunked)
+from ipddp2tpu_torch import chunked
 from ipddp2tpu_torch.backward import (backward_pass, costate_scan,
                                       sweep_plain)
 from ipddp2tpu_torch.derivatives import (contract_dynamics_hessian,
@@ -80,6 +105,7 @@ from ipddp2tpu_torch.derivatives import (contract_dynamics_hessian,
 from ipddp2tpu_torch import graphs
 from ipddp2tpu_torch.forward import (forward_pass, forward_pass_hybrid,
                                      rollout)
+from ipddp2tpu_torch.mixed import _cast_state
 from ipddp2tpu_torch.models import concar, double_integrator
 from ipddp2tpu_torch.ops import backward_cuda, build, forward_cuda
 from ipddp2tpu_torch.ops import probe_chain
@@ -125,10 +151,12 @@ GAIN_NAMES = ("alpha", "beta", "psi", "omega", "chi_l", "zeta_l", "chi_u",
 
 
 LOG = None          # --log: a file that gets every phase line as well
+STARTED = time.perf_counter()
 
 
 def emit(phase, **fields):
-    line = json.dumps({"phase": phase, **fields})
+    line = json.dumps({"phase": phase, **fields,
+                       "elapsed": time.perf_counter() - STARTED})
     print(line, flush=True)
     if LOG is not None:
         with open(LOG, "a") as f:
@@ -363,15 +391,9 @@ def sweep_scaling(args, dims, rtol, sizes, reps):
                     for k, c in zip(SECTIONS, prof.tolist())})
 
 
-def cast_tree(t, dtype):
-    """A (nested) tuple of tensors (a state, gains, bounds), or None, in
-    another floating type; integer and bool tensors stay."""
-    if t is None:
-        return None
-    if isinstance(t, torch.Tensor):
-        return t.to(dtype) if t.is_floating_point() else t
-    cast = [cast_tree(a, dtype) for a in t]
-    return type(t)(*cast) if hasattr(t, "_fields") else tuple(cast)
+# a (nested) tuple of tensors (a state, gains, bounds), or None, in another
+# floating type; integer and bool tensors stay
+cast_tree = _cast_state
 
 
 def forward_args(problem, theta, bounds, s, gains, options):
@@ -426,7 +448,7 @@ TRIAL_NAMES = ("x", "u", "phi", "zl", "zu", "il", "iu", "c_raw")
 # float64 batches, a starting value and not one tuned on this card
 SPECULATIVE = 8
 # lanes of the pure backtracking path, which is driven at a smaller size
-SMALL_BATCH = 256
+SMALL_BATCH = 64
 
 
 def boundary_edge(trial, args, tol):
@@ -900,6 +922,254 @@ def timed_solve(*args, **kwargs):
     return sol, time.perf_counter() - t0, read_counts()
 
 
+# the mixed solve as `bench.py` runs it (max_iterations=600, chunk=40, the
+# phase caps and compaction rungs below), with the hybrid search and the
+# kernels named in the options: the port's autotune table is empty, so the
+# endgame's K=8 alone would be a speculative-only search (a lane without an
+# acceptable candidate fails with status 7), and the rescue would backtrack
+MIXED_ITERATIONS = 600
+SUCCESS = dict(chunk=40, phase2_max_iterations=40, phase2_ls_speculative=8,
+               phase2_chunk=8, rescue_failed="restart",
+               rescue_ls_speculative=8, rescue_max_iterations=1000,
+               return_info=True)
+# the first lanes of the batch, driven so that the rescue, the stall freeze
+# and the adaptive K run: most lanes leave a 120-iteration f32 phase
+# unconverged. (Measured: no lane has a counted line-search trial, which
+# is what the adaptive K reads, before about iteration 80, so a shorter
+# phase would never switch K.)
+RESCUE_BATCH = 128
+RESCUE_PATH = dict(SUCCESS, chunk=5, phase1_max_iterations=120,
+                   phase1_stall_window=10, phase1_adapt_ls=(2, 4, 8),
+                   phase2_compact=True)
+
+
+def mixed_options(max_iterations):
+    return Options(optimality_tolerance=1e-7, max_iterations=max_iterations,
+                   ls_speculative=SPECULATIVE, ls_spec_continue=True,
+                   forward_kernel="cuda", backward_kernel="cuda")
+
+
+def bench_rungs(batch):
+    """`bench.py`'s endgame compaction rungs: B/2 down to B/16, at least
+    64 lanes (1024, 512, 256, 128 at B=2048)."""
+    return tuple(s for s in (batch // 2, batch // 4, batch // 8,
+                             batch // 16) if s >= 64) or False
+
+
+def record_chunks(events):
+    """Route the chunked loop's `run` and `initialize` through recorders:
+    every chunk appends its lanes, type, K, host-clock span and kernel
+    launches to `events`, every initialize its lanes and type. The loop
+    reads its state on the host after each chunk anyway, so the
+    synchronization here adds nothing. Returns the function that undoes
+    it."""
+    run_, init_ = chunked.run, chunked.initialize
+
+    def run(problem, bounds, state, theta, options, **kw):
+        before = read_counts()
+        # what `adapt_ls` read at this boundary: the last line-search counts
+        num_ls = state.num_ls.cpu()
+        t0 = time.perf_counter()
+        out = run_(problem, bounds, state, theta, options, **kw)
+        torch.cuda.synchronize()
+        events.append(dict(
+            kind="chunk", lanes=state.k.shape[0], dtype=str(state.x.dtype),
+            K=options.ls_speculative, t0=t0, t1=time.perf_counter(),
+            num_ls_nonzero=int((num_ls > 0).sum()),
+            launches={k: v - before[k] for k, v in read_counts().items()
+                      if v != before[k]}))
+        return out
+
+    def initialize_(problem, theta, bounds, x1, u_init, options, **kw):
+        events.append(dict(kind="init", lanes=x1.shape[0],
+                           dtype=str(u_init.dtype), t0=time.perf_counter()))
+        return init_(problem, theta, bounds, x1, u_init, options, **kw)
+
+    chunked.run, chunked.initialize = run, initialize_
+
+    def undo():
+        chunked.run, chunked.initialize = run_, init_
+    return undo
+
+
+def timed_mixed(problem, bounds, x1, u0, theta, options, kwargs):
+    """`solve_mixed_chunked` with every launch count set to 0 just before
+    and read just after, its chunks recorded. Returns (solution, info,
+    seconds, counts, events, start time)."""
+    events = []
+    undo = record_chunks(events)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        sol, info = solve_mixed_chunked(problem, bounds, x1, u0, theta=theta,
+                                        options=options, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    return sol, info, time.perf_counter() - t0, read_counts(), events, t0
+
+
+def _sum_launches(chunks):
+    out = {}
+    for c in chunks:
+        for k, v in c["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _k_stats(k):
+    k = k.to(torch.float64)
+    return dict(median_k=float(k.median()) if k.numel() else None,
+                max_k=int(k.max()) if k.numel() else None)
+
+
+def mixed_fields(sol, info, wall, counts, events, t_start):
+    """What a `solve_mixed_chunked` run did, phase by phase: host-clock
+    seconds (phase 1 ends with its last chunk, the rescue starts with its
+    initialize), lanes converged, iterations, the compaction rungs and the
+    kernel launches at each, the rescue's size, padding and result."""
+    f32 = str(torch.float32)
+    inits = [e for e in events if e["kind"] == "init"]
+    rescue_at = next((e["t0"] for e in inits if e["dtype"] != f32), None)
+    chunks = [e for e in events if e["kind"] == "chunk"]
+    p1 = [c for c in chunks if c["dtype"] == f32]
+    p2 = [c for c in chunks if c["dtype"] != f32
+          and (rescue_at is None or c["t0"] < rescue_at)]
+    rescue = [c for c in chunks if rescue_at is not None
+              and c["t0"] >= rescue_at]
+    t_end = t_start + wall
+    p1_end = p1[-1]["t1"] if p1 else t_start
+    p2_end = rescue_at if rescue_at is not None else t_end
+
+    def by_rung(cs):
+        out = {}
+        for c in cs:
+            row = out.setdefault(str(c["lanes"]), {"chunks": 0})
+            row["chunks"] += 1
+            for k, v in c["launches"].items():
+                row[k] = row.get(k, 0) + v
+        return out
+
+    def rungs(cs):
+        seq = []
+        for c in cs:
+            if not seq or seq[-1] != c["lanes"]:
+                seq.append(c["lanes"])
+        return seq
+
+    healthy = info["p1"]["converged"]
+    p2_iters = (info["p2"]["k"] - info["p1"]["k"])[healthy]
+    out = dict(
+        p1=dict(seconds=p1_end - t_start,
+                converged=int(info["p1"]["converged"].sum()),
+                status_counts=_status_counts(info["p1"]["status"]),
+                K_by_chunk=[c["K"] for c in p1],
+                lanes_with_counted_trials_by_chunk=[c["num_ls_nonzero"]
+                                                    for c in p1],
+                launches=_sum_launches(p1),
+                **_k_stats(info["p1"]["k"])),
+        p2=dict(seconds=p2_end - p1_end,
+                converged=int(info["p2"]["converged"].sum()),
+                lanes_promoted_converged_in_f32=int(healthy.sum()),
+                f64_iterations=_k_stats(p2_iters), rungs=rungs(p2),
+                launches_by_rung=by_rung(p2), launches=_sum_launches(p2)),
+        rescue=None)
+    if info["rescue"] is not None:
+        r = info["rescue"]
+        padded = next(e["lanes"] for e in inits if e["dtype"] != f32)
+        out["rescue"] = dict(
+            seconds=t_end - rescue_at, lanes=int(r["indices"].numel()),
+            padded_to=padded, solved=int(r["converged"].sum()),
+            status_counts=_status_counts(r["status"]), rungs=rungs(rescue),
+            launches_by_rung=by_rung(rescue),
+            launches=_sum_launches(rescue), **_k_stats(r["k"]))
+    conv = sol.converged
+    raw = lambda t: float(t[conv].max()) if bool(conv.any()) else None
+    out.update(
+        solved=int(conv.sum()), seconds=wall,
+        ocps_per_second=int(conv.sum()) / wall,
+        launches={k: v for k, v in counts.items() if v},
+        largest_raw_errors_of_converged_lanes=dict(
+            primal=raw(sol.primal_inf), dual=raw(sol.dual_inf),
+            cs=raw(sol.cs_inf)),
+        status_counts=_status_counts(sol.status))
+    return out
+
+
+def _status_counts(status):
+    return {str(k): int((status == k).sum()) for k in status.unique().tolist()}
+
+
+def all_finite(sol):
+    return all(bool(torch.isfinite(t).all())
+               for t in (sol.x, sol.u, sol.phi, sol.zl, sol.zu))
+
+
+def residue_solves(problem, max_iterations, device):
+    """The 24 round-5 residue instances (the port's data file), once through
+    the mixed solve in the configuration of the main path and once from
+    scratch in pure f64 (`solve_chunked`, hybrid K=8, 1000 iterations).
+    Returns the phase's fields."""
+    seeds, index, theta, f_lim, tau_lim, x1 = concar.residue_instances(
+        device)
+    n = x1.shape[0]
+    bounds = concar.bounds(f_lim, tau_lim, device=device)
+    u0 = concar.initial_controls(device=device).expand(n, concar.T,
+                                                       concar.NU)
+    sol_m, info, wall_m, counts_m, events, t0 = timed_mixed(
+        problem, bounds, x1, u0, theta, mixed_options(max_iterations),
+        dict(SUCCESS, phase2_compact=bench_rungs(n), device=device))
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sol_p = solve_chunked(problem, bounds, x1, u0, theta=theta,
+                          options=mixed_options(1000), chunk=40,
+                          device=device)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t1
+    counts_p = read_counts()
+
+    def lanes(sol):
+        return [dict(seed=s, index=i, converged=bool(sol.converged[j]),
+                     status=int(sol.status[j]), k=int(sol.iterations[j]),
+                     primal=float(sol.primal_inf[j]),
+                     dual=float(sol.dual_inf[j]), cs=float(sol.cs_inf[j]))
+                for j, (s, i) in enumerate(zip(seeds, index))]
+
+    finite = all_finite(sol_m) and all_finite(sol_p)
+    fields = dict(
+        instances=n, finite=finite,
+        mixed=dict(**mixed_fields(sol_m, info, wall_m, counts_m, events, t0),
+                   lanes=lanes(sol_m)),
+        f64=dict(solved=int(sol_p.converged.sum()), seconds=wall_p,
+                 launches={k: v for k, v in counts_p.items() if v},
+                 **_k_stats(sol_p.iterations), lanes=lanes(sol_p)))
+    return fields, finite
+
+
+def mixed_against_pure(data, pure_options, mixed_opts, mixed_kw):
+    """The flat pure-f64 hybrid solve (`solve_batch`) and the mixed solve
+    on the same batch in turns: pure, mixed, mixed, pure. Returns each
+    turn and the ratio of the two medians (mixed over pure)."""
+    prob, bounds, x1, u0, theta = data
+    turns = []
+    for which in ("pure", "mixed", "mixed", "pure"):
+        if which == "pure":
+            sol, wall, _ = timed_solve(prob, bounds, x1, u0, theta=theta,
+                                       options=pure_options)
+        else:
+            sol, _, wall, *_ = timed_mixed(prob, bounds, x1, u0, theta,
+                                           mixed_opts, mixed_kw)
+        turns.append(dict(which=which, seconds=wall,
+                          solved=int(sol.converged.sum()),
+                          lane0_iterations=int(sol.iterations[0]),
+                          lane0_objective=float(sol.objective[0])))
+    median = lambda w: sum(t["seconds"] for t in turns
+                           if t["which"] == w) / 2
+    return dict(turns=turns, mixed_over_pure=median("mixed") / median("pure"))
+
+
 def parent_metrics(lib):
     """The `forward_metrics_<type>` functions of another checkout's forward
     library, by type, each taking this tree's arguments (ptrs, B, T, K, geo,
@@ -1007,6 +1277,10 @@ def main():
                     help="stop after the kernels and probes phases")
     ap.add_argument("--log", default=None,
                     help="also append every phase line to this file")
+    ap.add_argument("--turns", action="store_true",
+                    help="time the pure-f64 hybrid solve and the mixed "
+                         "solve in turns on the same batch: pure, mixed, "
+                         "mixed, pure")
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a checkout of the parent commit: time its "
                          "forward-metrics kernel against this tree's, in "
@@ -1283,15 +1557,15 @@ def main():
             assert counts[name] > 0, f"{path} missed the kernel {name}"
             by_name[name]["launches_by_path"][path] = counts[name]
 
-    # ---- solve_hybrid_f64: the main path ---------------------------------
+    # ---- solve_hybrid_f64: the flat solve in pure f64 --------------------
     trace = []
     sol, wall, counts = timed_solve(prob, bounds, x1, u0, theta=theta,
                                     options=hyb64, trace=trace)
     names64 = ("backward_sweep_f64", "forward_metrics_f64",
                "forward_trial_f64")
+    names32 = ("backward_sweep_f32", "forward_metrics_f32",
+               "forward_trial_f32")
     record("solve_hybrid_f64", counts, names64)
-    for name in names64:
-        by_name[name]["launches"] = counts[name]
     emit("solve_hybrid_f64", T=prob.T, K=K, **solve_fields(sol, a.batch, wall),
          launches={k: v for k, v in counts.items() if v},
          forward_passes=counts["forward_metrics_f64"],
@@ -1299,6 +1573,62 @@ def main():
              counts["forward_trial_f64"] - counts["forward_metrics_f64"]),
          line_search=line_search_statistics(trace, K))
     golden_gates(sol, a.batch)
+    pure_seconds = wall
+
+    # ---- solve_mixed: THE MAIN PATH --------------------------------------
+    mix_opts = mixed_options(MIXED_ITERATIONS)
+    mixed_kw = dict(SUCCESS, phase2_compact=bench_rungs(a.batch))
+    sol, info, wall, counts, events, t0 = timed_mixed(
+        prob, bounds, x1, u0, theta, mix_opts, mixed_kw)
+    record("solve_mixed", counts, names32 + names64)
+    for name in names32 + names64:
+        by_name[name]["launches"] = counts[name]
+    fields = mixed_fields(sol, info, wall, counts, events, t0)
+    emit("solve_mixed", batch=a.batch, T=prob.T, K=K,
+         max_iterations=MIXED_ITERATIONS,
+         compact_rungs=mixed_kw["phase2_compact"],
+         tf32=torch.backends.cuda.matmul.allow_tf32, **fields,
+         lane0=dict(objective=float(sol.objective[0]),
+                    iterations=int(sol.iterations[0]),
+                    converged=bool(sol.converged[0]),
+                    dual_inf=float(sol.dual_inf[0])))
+    emit("mixed_vs_pure", batch=a.batch, pure_f64_seconds=pure_seconds,
+         mixed_seconds=wall, mixed_over_pure=wall / pure_seconds)
+    assert all_finite(sol)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    # lane 0 under the rule of tests/test_mixed.py::test_mixed_concar
+    assert bool(sol.converged[0]), "seed-1 lane did not converge"
+    assert math.isclose(float(sol.objective[0]),
+                        concar.SEED1_GOLDEN_OBJECTIVE, rel_tol=1e-4)
+    assert float(sol.dual_inf[0]) < 1e-7
+    assert fields["solved"] >= 0.95 * a.batch, \
+        f"only {fields['solved']}/{a.batch} converged"
+    assert counts["backward_sweep_f32"] > 0
+
+    # ---- mixed_rescue: the rescue, the stall freeze, the adaptive K -------
+    nr = min(RESCUE_BATCH, a.batch)
+    sol, info, wall, counts, events, t0 = timed_mixed(
+        prob, Bounds(bounds.lower[:nr], bounds.upper[:nr]), x1[:nr],
+        u0[:nr], concar.Theta(theta.obstacles[:nr]), mix_opts, RESCUE_PATH)
+    record("mixed_rescue", counts, names32 + names64)
+    fields = mixed_fields(sol, info, wall, counts, events, t0)
+    emit("mixed_rescue", batch=nr, **fields)
+    left = torch.nonzero(~info["p2"]["converged"])[:, 0]
+    assert info["rescue"] is not None, "no lane left for the rescue"
+    assert torch.equal(info["rescue"]["indices"], left), \
+        "the rescue did not take exactly the lanes phase 2 left"
+    assert fields["rescue"]["solved"] >= 0.95 * left.numel()
+    assert all_finite(sol)
+
+    # ---- residue: the round-5 residue instances in native f64 -----------
+    fields, finite = residue_solves(prob, MIXED_ITERATIONS, dev)
+    emit("residue", **fields)
+    assert finite
+
+    # ---- turns: mixed against pure f64 in turns on the same batch --------
+    if a.turns:
+        emit("turns", batch=a.batch, **mixed_against_pure(
+            (prob, bounds, x1, u0, theta), hyb64, mix_opts, mixed_kw))
 
     # ---- solve_hybrid_f32 ------------------------------------------------
     th32, b32, x32, u32 = concar_batch(a.batch, torch.float32, dev, a.seed)
@@ -1308,11 +1638,7 @@ def main():
     p0 = s0.c_raw.abs().flatten(1).amax(dim=1)
     sol32, wall32, counts = timed_solve(prob, b32, x32, u32, theta=th32,
                                         options=hyb32)
-    names32 = ("backward_sweep_f32", "forward_metrics_f32",
-               "forward_trial_f32")
     record("solve_hybrid_f32", counts, names32)
-    for name in names32:
-        by_name[name]["launches"] = counts[name]
     finite = all(bool(torch.isfinite(t).all())
                  for t in (sol32.x, sol32.u, sol32.phi, sol32.zl, sol32.zu))
     emit("solve_hybrid_f32", batch=a.batch, iterations=30, K=K,

@@ -2,9 +2,10 @@
 
 Counterpart of `ipddp2tpu/batch.py`. The JAX package batches the solver by
 `vmap`; the port's solver is written batch-first, so `solve_batch` is a thin
-call into `solve`. Converged or failed instances freeze their slice of the
-carried state while the rest keep iterating; per-instance status codes
-replace the reference's per-seed result rows.
+call into `solve`, after `autotune.tune` as in the JAX package. Converged or
+failed instances freeze their slice of the carried state while the rest keep
+iterating; per-instance status codes replace the reference's per-seed result
+rows.
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .autotune import tune
 from .options import Options
 from .problem import Bounds, Problem
-from .solve import Solution, solve
+from .solve import Solution, resolve_device, solve
 
 Tensor = torch.Tensor
 
@@ -44,6 +46,8 @@ def solve_batch(problem: Problem, bounds: Bounds, x1: Tensor, u_init: Tensor,
     raises (pass `device="cpu"` for the plain path). `trace`: see
     `solve.run`.
     """
+    device = resolve_device(device)
+    options = tune(options or Options(), x1.shape[0], u_init.dtype, device)
     return solve(problem, bounds, x1, u_init, theta=theta, options=options,
                  device=device, trace=trace)
 

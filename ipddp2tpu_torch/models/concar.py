@@ -20,7 +20,9 @@ The stage functions act on one instance's 1-D tensors and trace under
 
 from __future__ import annotations
 
+import json
 import math
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -146,3 +148,21 @@ def seed1_instance(dtype=torch.float64, device=None):
                                          device=device))
     x1 = torch.tensor(SEED1_X1, dtype=dtype, device=device)
     return theta, SEED1_F_LIM, SEED1_TAU_LIM, x1
+
+
+RESIDUE_R5 = Path(__file__).with_name("concar_residue_r5.json")
+
+
+def residue_instances(device=None, dtype=torch.float64):
+    """The 24 instances of the round-5 residue (`concar_residue_r5.json`:
+    seeds 1002 and 1004 of the JAX package's generator, stored exactly as
+    `float.hex`). Returns (seeds [24], indices [24], Theta [24,4,3], f_lim
+    [24], tau_lim [24], x1 [24,4]); seeds and indices are Python lists."""
+    rows = json.loads(RESIDUE_R5.read_text())["instances"]
+    num = lambda v: ([num(a) for a in v] if isinstance(v, list)
+                     else float.fromhex(v))
+    col = lambda key: torch.tensor([num(r[key]) for r in rows],
+                                   dtype=torch.float64).to(device, dtype)
+    return ([r["seed"] for r in rows], [r["index"] for r in rows],
+            Theta(obstacles=col("obstacles")), col("f_lim"), col("tau_lim"),
+            col("x1"))

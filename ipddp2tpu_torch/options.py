@@ -150,8 +150,10 @@ class Options:
                                         # "xla"   = the JAX package's name
                                         #           for its un-fused path:
                                         #           the same as "torch"
-    auto_tune: bool = True              # unused so far (no autotune
-                                        # table for the GPU yet)
+    auto_tune: bool = True              # autotune.tune fills knobs still
+                                        # at their defaults from its table
+                                        # on a GPU; the table is empty (no
+                                        # crossover measured on the H100)
 
     def validate(self) -> "Options":
         """Refuse what the port does not implement yet. Nothing is

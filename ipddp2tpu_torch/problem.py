@@ -145,7 +145,7 @@ STATUS_SOC_FAILED = 6             # reserved (reference never sets it)
 STATUS_LINE_SEARCH_FAILED = 7     # step size underflowed machine eps
 STATUS_MAX_ITERATIONS = 8
 STATUS_STALLED = 9                # host-side stall freeze of the chunked
-                                  # solve loop (not ported yet)
+                                  # solve loop (chunked.stall_step)
 
 STATUS_MESSAGES = {
     STATUS_OK: "Optimal solution found",

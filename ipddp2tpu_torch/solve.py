@@ -116,16 +116,21 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def tree_map(fn, tree, *rest):
+    """`fn` applied leaf by leaf to the tensors of one or more (possibly
+    nested) tuples / NamedTuples of the same structure (a state, bounds,
+    theta); None and other leaves of `tree` stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, tuple):
+        parts = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree
+
+
 def _to_device(tree, device):
     """Move every tensor leaf of a (possibly nested) tuple / None."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, tuple):
-        moved = [_to_device(a, device) for a in tree]
-        return type(tree)(*moved) if hasattr(tree, "_fields") else tuple(moved)
-    return tree
+    return tree_map(lambda a: a.to(device), tree)
 
 
 def _lane(mask: Tensor, like: Tensor) -> Tensor:
@@ -359,8 +364,11 @@ def run(problem: Problem, bounds: Bounds, state: SolverState, theta,
     """The main iteration loop on an initialized state.
 
     `k_limit` (default options.max_iterations) bounds the iteration counter
-    for this call: resuming `run` on the returned state with a higher limit
-    continues the identical trajectory.
+    for this call, as an int for every lane or as an int tensor `[B]`, one
+    limit per lane, clipped to options.max_iterations: a lane runs while its
+    k is below its limit, and a lane that stops there unconverged gets
+    status 8. Resuming `run` on the returned state with a higher limit
+    continues the identical trajectory (the chunked loop's hook).
 
     `trace`, if given, is a list to which every iteration appends
     (stepped [B] bool, step_size [B], num_ls [B]): which lanes accepted a
@@ -373,7 +381,11 @@ def run(problem: Problem, bounds: Bounds, state: SolverState, theta,
     bounds = batch_bounds(_to_device(bounds, device), state.x.shape[0])
     if k_limit is None:
         k_limit = options.max_iterations
-    k_limit = min(int(k_limit), options.max_iterations)
+    if isinstance(k_limit, torch.Tensor):
+        k_limit = torch.clamp(k_limit.to(device=device, dtype=torch.int32),
+                              max=options.max_iterations)
+    else:
+        k_limit = min(int(k_limit), options.max_iterations)
 
     while True:
         active = ((state.k < k_limit) & (state.status == 0)

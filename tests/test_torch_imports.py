@@ -31,8 +31,8 @@ def _imports(path):
 def test_port_files_are_found():
     names = {p.name for p in FILES}
     assert {"solve.py", "backward.py", "backward_cuda.py", "convert.py",
-            "forward_cuda.py", "probe_chain.py", "build.py",
-            "chip_smoke.py"} <= names
+            "forward_cuda.py", "probe_chain.py", "build.py", "chunked.py",
+            "autotune.py", "mixed.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -97,14 +97,16 @@ def test_models_name_their_device_functions():
 
 
 def test_default_device_raises_without_a_gpu():
-    from ipddp2tpu_torch import Options, solve, solve_batch
+    from ipddp2tpu_torch import (Options, solve, solve_batch, solve_chunked,
+                                 solve_mixed, solve_mixed_chunked)
     from ipddp2tpu_torch.models import double_integrator as di
     from ipddp2tpu_torch.solve import initialize
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
     args = (di.problem(), di.bounds(), di.initial_state()[None],
             di.initial_controls()[None])
-    for entry in (solve, solve_batch):
+    for entry in (solve, solve_batch, solve_chunked, solve_mixed,
+                  solve_mixed_chunked):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry(*args, options=Options(max_iterations=1))
     with pytest.raises(RuntimeError, match="CUDA"):
