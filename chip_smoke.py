@@ -12,9 +12,11 @@ only. Phases, each printing one JSON line:
   device     the card, its capability, its power limit and highest SM
              clock;
   build      compiles every kernel from the sources in this checkout, all
-             `nvcc` processes started together: the backward sweep (concar,
-             double integrator, a tiny nc=0 model), the forward kernels of
-             the same three and the chain probes; prints the compiler's
+             `nvcc` processes started together: the backward sweep's LDL^T
+             instantiation (concar, double integrator, a tiny nc=0 model,
+             quadrotor, cartpole swing-up) and its Bunch-Kaufman
+             instantiation (acrobot, cartpole, pushing), the forward kernels
+             of every model and the chain probes; prints the compiler's
              registers, spills and stack of every kernel and the sweep's
              launch geometry (lanes per instance, instances and shared
              memory per block);
@@ -33,7 +35,14 @@ only. Phases, each printing one JSON line:
              preparing its inputs, and its cycle counters. For the metrics
              kernel (K3) also its checks at K = 1, 3, 8, 13, 40 on B, B - 3
              and 1 lanes of all three models (`metrics_grid`) and its time
-             at 256 to 8192 lanes (`metrics_scaling`);
+             at 256 to 8192 lanes (`metrics_scaling`). On mid-solve states
+             of the six further models (their 100 campaign instances, T=100,
+             10 iterations): the Bunch-Kaufman sweep against
+             `sweep_plain(inertia="bk")` on the three contact models in f64
+             and f32 (flags equal on every lane, gains within BK_TOL; timed),
+             the LDL^T sweep on the three smooth ones (`kernels_by_model`),
+             K3 / K4 with each new model's device functions in f64, timed
+             (`forward_by_model`);
   probes     the two chain probes, driven once at their size;
   graphs     the rollout replayed from a CUDA graph equals the eager one;
   solve_hybrid_f64  the flat solve in pure f64: `solve_batch` on concar at
@@ -62,11 +71,23 @@ only. Phases, each printing one JSON line:
              the mixed solve and from scratch in pure f64: each lane's
              status, iterations and KKT errors (checks that they are
              finite);
+  campaign   the JAX package's 100-instance campaign of each of the six
+             further models (`experiments/params`, as
+             `experiments/run_benchmarks.py` solves them: `solve_batch`,
+             f64, tolerance 1e-7, backtracking, inertia "auto" -> bk on the
+             contact models) in one batch of 101 lanes, lane 100 the golden
+             anchor's instance: solved, median and largest iterations,
+             seconds, launches, objectives matching the JAX results file to
+             1e-4, seed 1 beside its row there, the golden lane beside its
+             anchor; acrobot's batch once more with the hybrid search (K3 /
+             K4 inside a contact solve) and 20 float32 iterations (the bk
+             instantiation in float); fails on non-finite iterates, fewer
+             than 95 solved, or a path's kernel not launched;
   turns      with --turns: the flat pure-f64 solve and the mixed solve in
              turns on the same batch (pure, mixed, mixed, pure);
   solve_hybrid_f32  30 iterations of the same in float32;
   solve_f64  the pure backtracking path (graph-replayed plain rollout,
-             sweep kernel) at 64 lanes, same gates;
+             sweep kernel) at 32 lanes, same gates;
   backtrack_cuda  20 iterations of pure backtracking with the forward-trial
              kernel as the rollout;
   phases     a timed split of a few mid-solve iterations into the solver's
@@ -78,8 +99,9 @@ only. Phases, each printing one JSON line:
 
 Any failed assertion or exception ends the run with a non-zero exit code and
 without the last line. The last three lines are the kernels' JSON object
-(`launches`: the main path's, `solve_mixed`), the card's name and power
-limit, and the result object.
+(`launches`: the main path's, `solve_mixed`; for the Bunch-Kaufman sweep the
+campaign's contact solves in f64 and its float32 solve), the card's name and
+power limit, and the result object.
 """
 
 import argparse
@@ -106,7 +128,10 @@ from ipddp2tpu_torch import graphs
 from ipddp2tpu_torch.forward import (forward_pass, forward_pass_hybrid,
                                      rollout)
 from ipddp2tpu_torch.mixed import _cast_state
-from ipddp2tpu_torch.models import concar, double_integrator
+from ipddp2tpu_torch import convert
+from ipddp2tpu_torch.models import (acrobot, cartpole, cartpole_swingup,
+                                    concar, concar_quad, double_integrator,
+                                    pushing, quadrotor)
 from ipddp2tpu_torch.ops import backward_cuda, build, forward_cuda
 from ipddp2tpu_torch.ops import probe_chain
 from ipddp2tpu_torch.ops.backward_cuda import (backward_sweep_cuda,
@@ -121,7 +146,7 @@ from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_LANES, SECTIONS,
                                                crafted_inputs)
 from ipddp2tpu_torch.problem import Bounds
 from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
-                                   iteration)
+                                   iteration, resolve_options)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): device
 # memory rate, and the vector (non-tensor-core) rates the sweep can use.
@@ -448,7 +473,7 @@ TRIAL_NAMES = ("x", "u", "phi", "zl", "zu", "il", "iu", "c_raw")
 # float64 batches, a starting value and not one tuned on this card
 SPECULATIVE = 8
 # lanes of the pure backtracking path, which is driven at a smaller size
-SMALL_BATCH = 64
+SMALL_BATCH = 32
 
 
 def boundary_edge(trial, args, tol):
@@ -492,13 +517,15 @@ def _fold(kernel, plain, ref, where, acc_kernel, acc_plain, key, wide):
     return err
 
 
-def hold_metrics(name, mk, mp, mr, edge, dtype, need_both_flags, failures):
+def hold_metrics(name, mk, mp, mr, edge, dtype, need_both_flags, failures,
+                 hold_outside=True):
     """K3's outputs `mk` against the plain version's `mp` and the reference
     `mr` (`mp` itself in float64; in float32 the float64 plain version on
     the same inputs). The finite flags everywhere, the boundary flags away
     from the threshold (`edge [B, K]`), the measures inside the boundary
     and theta, J on every finite candidate (L takes the log of a negative
-    slack outside). Appends to `failures`; returns the measured fields."""
+    slack outside; with `hold_outside` False those are reported, not held).
+    Appends to `failures`; returns the measured fields."""
     wide = dtype != torch.float64
     fin_k, ftb_k, fin_p, ftb_p = mk[3], mk[4], mp[3], mp[4]
     fin_r = fin_p & mr[3]
@@ -524,8 +551,9 @@ def hold_metrics(name, mk, mp, mr, edge, dtype, need_both_flags, failures):
             _fold(mk[i], mp[i], mr[i], fin_r, m_out_kernel, m_out_plain,
                   mname, wide)
     _held(failures, name, "measure", m_kernel, m_plain, TOL[dtype], wide)
-    _held(failures, name, "measure (all finite candidates)", m_out_kernel,
-          m_out_plain, TOL_OUTSIDE[dtype], wide)
+    if hold_outside:
+        _held(failures, name, "measure (all finite candidates)",
+              m_out_kernel, m_out_plain, TOL_OUTSIDE[dtype], wide)
     fields = dict(
         max_abs_err=m_abs, max_rel_err=max(m_kernel.values(), default=0.0),
         rel_err=m_kernel, rel_err_all_finite=m_out_kernel,
@@ -569,7 +597,8 @@ def kernel_bound(nbytes, flops, dtype):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_forward(name, args, K, dtype, time_reps, need_both_flags):
+def check_forward(name, args, K, dtype, time_reps, need_both_flags,
+                  hold_outside=True):
     """K3 and K4 against their plain versions on the same inputs.
 
     float64: kernel against plain, relative to each tensor's scale: TOL on
@@ -580,8 +609,11 @@ def check_forward(name, args, K, dtype, time_reps, need_both_flags):
     the kernel and the float32 plain version are therefore held against the
     plain version in float64 on the same (float32) inputs, and the kernel
     must come as close to it as the plain version does, within a factor 4,
-    or within the tolerances above. Returns the measured fields of the
-    metrics and of the trial kernel and the list of failed checks."""
+    or within the tolerances above. With `hold_outside` False the
+    candidates outside the boundary are reported and not held (a model
+    whose closed loop diverges there: the search rejects them by their
+    flags, which stay held). Returns the measured fields of the metrics and
+    of the trial kernel and the list of failed checks."""
     problem = args[0]
     B, device = args[6].shape[0], args[6].device
     gammas = candidate_steps(K, dtype, device)
@@ -625,8 +657,9 @@ def check_forward(name, args, K, dtype, time_reps, need_both_flags):
                  torch.where(pick.reshape((-1,) + (1,) * (r.dim() - 1)), r, m)
                  for m, r in zip(mixed, tr)]
     _held(failures, name, "trial", t_kernel, t_plain, tol, wide)
-    _held(failures, name, "trial (all finite candidates)", t_out_kernel,
-          t_out_plain, TOL_OUTSIDE[dtype], wide)
+    if hold_outside:
+        _held(failures, name, "trial (all finite candidates)", t_out_kernel,
+              t_out_plain, TOL_OUTSIDE[dtype], wide)
     # one launch with a different step size on every lane
     g_mixed = gammas[lanes % K].contiguous()
     tk = forward_trial_cuda(*args, g_mixed)
@@ -638,7 +671,7 @@ def check_forward(name, args, K, dtype, time_reps, need_both_flags):
           t_plain, tol, wide)
 
     metrics = hold_metrics(name, mk, mp, mr, edge, dtype, need_both_flags,
-                           failures)
+                           failures, hold_outside)
     trial = dict(max_abs_err=t_abs, max_rel_err=max(t_kernel.values()),
                  rel_err=t_kernel, rel_err_all_finite=t_out_kernel,
                  against=metrics["against"])
@@ -1010,6 +1043,21 @@ def timed_mixed(problem, bounds, x1, u0, theta, options, kwargs):
     return sol, info, time.perf_counter() - t0, read_counts(), events, t0
 
 
+def lane0_split(info):
+    """Lane 0's path through the mixed solve: its f32 iterations and
+    whether phase 1 converged it, its f64 endgame iterations, and whether
+    the rescue took it (then its iterations there, from scratch)."""
+    p1, p2, r = info["p1"], info["p2"], info["rescue"]
+    out = dict(phase1_iterations=int(p1["k"][0]),
+               phase1_converged=bool(p1["converged"][0]),
+               phase2_f64_iterations=int(p2["k"][0] - p1["k"][0]),
+               phase2_converged=bool(p2["converged"][0]), rescued=False)
+    if r is not None and bool((r["indices"] == 0).any()):
+        j = int(torch.nonzero(r["indices"] == 0)[0, 0])
+        out.update(rescued=True, rescue_iterations=int(r["k"][j]))
+    return out
+
+
 def _sum_launches(chunks):
     out = {}
     for c in chunks:
@@ -1146,6 +1194,216 @@ def residue_solves(problem, max_iterations, device):
                  launches={k: v for k, v in counts_p.items() if v},
                  **_k_stats(sol_p.iterations), lanes=lanes(sol_p)))
     return fields, finite
+
+
+# ---- the six further benchmark models: campaign and kernel checks ---------
+
+# name, module, the JAX campaign's results file (experiments/results): the
+# reference's default-path files (pushing: pushing_1_obs.txt)
+CAMPAIGN = (("concar_quad", concar_quad, "concar_quad.txt"),
+            ("quadrotor", quadrotor, "quadrotor.txt"),
+            ("cartpole_swingup", cartpole_swingup, "cartpole_swingup.txt"),
+            ("acrobot", acrobot, "acrobot_contact.txt"),
+            ("cartpole", cartpole, "cartpole_friction.txt"),
+            ("pushing", pushing, "pushing_1_obs.txt"))
+CONTACT = ("acrobot", "cartpole", "pushing")
+RESULTS = Path(__file__).resolve().parent / "experiments" / "results"
+CAMPAIGN_SEEDS = 100
+# the least share of the 100 that a campaign solve must converge: the JAX
+# package solves 100 of 100 on each of them but pushing (98)
+CAMPAIGN_SOLVED = {"pushing": 0.95}
+# kernel-against-plain tolerance of the Bunch-Kaufman sweep, relative to
+# each gain tensor's scale on the lanes that pass, in the working type on
+# both sides. The solve is plain substitution without refinement on the
+# contact models' KKT matrices, so one rounding of the two (other order,
+# fused multiply-adds) is amplified by their conditioning (measured on the
+# H100: 3.4e-13 in float64; in float32 both sides 1.7e-4 from the float64
+# plain version).
+BK_TOL = {torch.float64: 1e-8, torch.float32: 1e-3}
+
+
+def golden_row(name, mod):
+    """The instance of the repo's golden anchor in the params layout of
+    `mod.from_params`: the reference's seed 1 (concar_quad: concar's) or,
+    for quadrotor and the swing-up, the default instance."""
+    if name == "concar_quad":
+        th, f_lim, tau_lim, x1 = mod.seed1_instance()
+        return [f_lim, tau_lim, *th.obstacles.flatten().tolist(),
+                *x1.tolist()]
+    if name == "quadrotor":
+        return [*mod.GOAL, 0.0, 0.0, 0.0]
+    if name == "cartpole_swingup":
+        return [0.0, 0.0]
+    th = mod.SEED1_THETA
+    if name == "acrobot":
+        return [th["m1"], mod.I1, th["l1"], mod.LC1, th["m2"], mod.I2,
+                th["l2"], mod.LC2]
+    if name == "cartpole":
+        return [th["mc"], th["mp"], th["l"], *th["friction"]]
+    return [th["zx"], th["zy"], th["c"], th["mu_fric"], *th["obstacle"]]
+
+
+def golden_of(name, mod):
+    if name in ("quadrotor", "cartpole_swingup"):
+        return mod.ANCHOR_OBJECTIVE, mod.ANCHOR_ITERATIONS
+    return mod.SEED1_GOLDEN_OBJECTIVE, mod.SEED1_GOLDEN_ITERATIONS
+
+
+def campaign_batch(name, mod, dtype, device):
+    """Lanes 0..99: the JAX campaign's instances (experiments/params, seed
+    1 first); lane 100: the golden anchor's instance."""
+    rows = convert.params_rows(mod.PARAMS).tolist() + [golden_row(name, mod)]
+    return mod.from_params(rows, dtype, device)
+
+
+def reference_results(filename):
+    """The JAX campaign's per-seed table: converged, iterations,
+    objective, each [100]."""
+    rows = [line.split() for line in
+            (RESULTS / filename).read_text().splitlines()[1:]
+            if line.strip()]
+    conv = torch.tensor([r[2] == "true" for r in rows])
+    iters = torch.tensor([int(r[1]) for r in rows], dtype=torch.float64)
+    obj = torch.tensor([float(r[3]) for r in rows], dtype=torch.float64)
+    return conv, iters, obj
+
+
+def _median(t):
+    """The median as numpy takes it (the mean of the two middle values)."""
+    v = t.to(torch.float64).sort().values
+    n = v.numel()
+    return float(v[n // 2]) if n % 2 else float(0.5 * (v[n // 2 - 1]
+                                                       + v[n // 2]))
+
+
+def on_golden(name, objective, iterations, converged, golden):
+    """tests/test_benchmarks.py's rule: `_check` (objective to 1e-6,
+    iterations within max(3, 10 % + 1)); pushing: converged, objective
+    within 10 %."""
+    g_obj, g_it = golden
+    if name == "pushing":
+        return converged and math.isclose(objective, g_obj, rel_tol=0.1)
+    return (converged and math.isclose(objective, g_obj, rel_tol=1e-6)
+            and abs(iterations - g_it) <= max(3, int(0.1 * g_it) + 1))
+
+
+def campaign_fields(name, mod, results, sol, wall, counts):
+    """What one campaign solve did on the 100 reference instances, beside
+    the JAX campaign's results file, and its golden lane (lane 100)."""
+    n = CAMPAIGN_SEEDS
+    conv, iters, obj = (sol.converged[:n].cpu(), sol.iterations[:n].cpu(),
+                        sol.objective[:n].cpu())
+    r_conv, r_iters, r_obj = reference_results(results)
+    match = conv & r_conv & ((obj - r_obj).abs() <= 1e-4 * r_obj.abs())
+    g_obj, g_it = float(sol.objective[n]), int(sol.iterations[n])
+    g_conv = bool(sol.converged[n])
+    golden = golden_of(name, mod)
+    med, r_med = _median(iters), _median(r_iters)
+    return dict(
+        model=name, instances=n, solved=int(conv.sum()),
+        reference_solved=int(r_conv.sum()),
+        median_iterations=med, reference_median_iterations=r_med,
+        median_within_10_percent_or_3=abs(med - r_med) <= max(
+            0.1 * r_med, 3.0),
+        max_iterations=int(iters.max()),
+        reference_max_iterations=int(r_iters.max()), seconds=wall,
+        objectives_matching_reference_to_1e_4=int(match.sum()),
+        seed1=dict(iterations=int(iters[0]), objective=float(obj[0]),
+                   converged=bool(conv[0]),
+                   reference_iterations=int(r_iters[0]),
+                   reference_objective=float(r_obj[0])),
+        golden=dict(iterations=g_it, objective=g_obj, converged=g_conv,
+                    golden_iterations=golden[1],
+                    golden_objective=golden[0],
+                    on_golden=on_golden(name, g_obj, g_it, g_conv, golden)),
+        launches={k: v for k, v in counts.items() if v},
+        status_counts=_status_counts(sol.status[:n]))
+
+
+def campaign_gates(name, fields, sol, counts, names):
+    """What fails the run: non-finite iterates, fewer solved than
+    CAMPAIGN_SOLVED (95 %), a kernel of the path never launched."""
+    assert all_finite(sol), f"campaign/{name}: non-finite iterates"
+    least = CAMPAIGN_SOLVED.get(name, 0.95) * CAMPAIGN_SEEDS
+    assert fields["solved"] >= least, \
+        f"campaign/{name}: {fields['solved']} solved < {least}"
+    for k in names:
+        assert counts[k] > 0, f"campaign/{name} missed the kernel {k}"
+
+
+def mid_state(problem, theta, bounds, x1, u0, iters):
+    """A mid-solve state (non-uniform duals) after `iters` iterations of
+    the default options on the card."""
+    opts = Options(optimality_tolerance=1e-7)
+    s = initialize(problem, theta, bounds, x1, u0, opts)
+    for _ in range(iters):
+        s = iteration(problem, bounds, s, theta, opts)
+    return s
+
+
+def bk_sweep_flops(T, nx, nu, nc):
+    """Floating-point operations of one instance's Bunch-Kaufman sweep (a
+    multiply-add counts two): the eliminations of the trailing matrix
+    (1x1 and 2x2 pivots cost the same to first order), substitution for
+    nx + 1 right-hand sides without refinement, assembly, gains and value
+    recursion as `sweep_flops`."""
+    m, nk = nu + nc, nx + 1
+    tri = sum(m - 1 - j for j in range(m))
+    factor = sum(2 * (m - 1 - j) ** 2 + (m - 1 - j) for j in range(m))
+    solve = nk * (4 * tri + m)
+    assemble = (2 * nx * nx * (nu + nx) + 2 * nx * nx * (nx + nu)
+                + 2 * nu * nu * nx + 2 * nu * (nx + nc) + 8 * nu)
+    value = 2 * m * nx * (nx + 1) + 2 * nx * (nx + nc) + 2 * m
+    gains = 6 * nu + 2 * nu * nx
+    return T * (factor + solve + assemble + value + gains)
+
+
+def check_bk(name, args, dims, atol, time_reps):
+    """The Bunch-Kaufman instantiation against `sweep_plain(inertia="bk")`
+    on the same inputs: the fail and singular flags (the stage decisions:
+    n_pos == nu, info) equal on every lane, the gains on the lanes that pass
+    within BK_TOL. Returns the measured fields."""
+    dtype = args[18].dtype
+    kw = dict(dims, refine=1, rtol=1e-6, inertia="bk", atol=atol)
+    gk, dLk, fk, sk = backward_sweep_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    gp, dLp, fp, sp = sweep_plain(*args, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)    # one call: some 10^5 launches
+    differing = int((fk != fp).sum()), int((sk != sp).sum())
+    assert differing == (0, 0), \
+        f"{name}: fail / singular flags differ on {differing} lanes"
+    ok = ~fp
+    assert int(ok.sum()) > 0 and int(fp.sum()) > 0, \
+        f"{name}: need passing and failing lanes ({int(ok.sum())} pass)"
+    max_abs, per_k = 0.0, {}
+    for gname, a, b in list(zip(GAIN_NAMES, gk, gp)) + [("dL", dLk, dLp)]:
+        if b[ok].numel() == 0:
+            continue
+        err, per_k[gname] = rel_err(a, b, ok)
+        max_abs = max(max_abs, err)
+    max_rel = max(per_k.values())
+    assert max_rel <= BK_TOL[dtype], \
+        f"{name}: max relative error {max_rel} > {BK_TOL[dtype]}: {per_k}"
+    fields = dict(max_abs_err=max_abs, max_rel_err=max_rel, rel_err=per_k,
+                  lanes=int(fp.numel()), lanes_failing=int(fp.sum()),
+                  lanes_singular=int(sp.sum()))
+    if time_reps:
+        kernel = lambda: backward_sweep_cuda(*args, **kw)
+        fields["ms"] = graph_ms(kernel, time_reps)
+        fields["ms_eager"] = cuda_ms(kernel, time_reps)
+        fields["plain_ms"] = plain_ms
+        nbytes = sum(a.numel() * a.element_size() for a in args)
+        nbytes += sum(g.numel() * g.element_size() for g in gk)
+        nbytes += dLk.numel() * dLk.element_size() + 2 * fk.numel()
+        B, T = args[11].shape[0], args[11].shape[1]
+        fields.update(kernel_bound(nbytes, B * bk_sweep_flops(
+            T, dims["nx"], dims["nu"], dims["nc"]), dtype))
+    return fields
 
 
 def mixed_against_pure(data, pure_options, mixed_opts, mixed_kw):
@@ -1318,26 +1576,37 @@ def main():
     dims_c = dict(nx=prob.nx, nu=prob.nu, nc=prob.nc)
     dims_t = dict(nx=tiny.nx, nu=tiny.nu, nc=tiny.nc)
     dims_d = dict(nx=di.nx, nu=di.nu, nc=di.nc)
+    more = {name: mod.problem() for name, mod, _ in CAMPAIGN}
+    dims_of = lambda p: dict(nx=p.nx, nu=p.nu, nc=p.nc)
+    dims_ldl = [dims_of(more[n]) for n in ("quadrotor", "cartpole_swingup")]
+    dims_bk = {n: dims_of(more[n]) for n in CONTACT}
     t0 = time.perf_counter()
     started_builds = (
         [backward_cuda.start_build(*d.values(), verbose=True)
-         for d in (dims_c, dims_d, dims_t)]
+         for d in (dims_c, dims_d, dims_t, *dims_ldl)]
+        + [backward_cuda.start_build(*d.values(), verbose=True,
+                                     inertia="bk")
+           for d in dims_bk.values()]
         + [forward_cuda.start_build(p, verbose=True)
-           for p in (prob, di, tiny)]
+           for p in (prob, di, tiny, *more.values())]
         + [probe_chain.start_build(verbose=True)])
     logs = {}
     libs = build.finish_all(started_builds, verbose=True, logs=logs)
     if a.ptxas:
         print("\n".join(logs.values()), flush=True)
     geometry = {}
-    for d in (dims_c, dims_d, dims_t):
-        geo = launch_geometry(**d)
-        geometry["nx{nx}_nu{nu}_nc{nc}".format(**d)] = dict(
-            lanes_per_instance=geo.lanes,
-            instances_per_block=geo.instances_per_block,
-            threads_per_block=geo.threads,
-            smem_bytes_per_block={str(k): v
-                                  for k, v in geo.smem_bytes.items()})
+    for inertia, dims in (("ldl", (dims_c, dims_d, dims_t, *dims_ldl)),
+                          ("bk", tuple(dims_bk.values()))):
+        for d in dims:
+            geo = launch_geometry(**d, inertia=inertia)
+            key = "{}nx{nx}_nu{nu}_nc{nc}".format(
+                "bk_" if inertia == "bk" else "", **d)
+            geometry[key] = dict(
+                lanes_per_instance=geo.lanes,
+                instances_per_block=geo.instances_per_block,
+                threads_per_block=geo.threads,
+                smem_bytes_per_block={str(k): v
+                                      for k, v in geo.smem_bytes.items()})
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in libs],
          ptxas={name: build.ptxas_report(log) for name, log in logs.items()},
@@ -1355,11 +1624,14 @@ def main():
     theta, bounds, x1, u0 = concar_batch(a.batch, torch.float64, dev, a.seed)
     plain = Options(optimality_tolerance=1e-7, backward_kernel="torch")
     t0 = time.perf_counter()
-    mid = initialize(prob, theta, bounds, x1, u0, plain)
-    for _ in range(10):                 # a mid-solve state: non-uniform duals
-        mid = iteration(prob, bounds, mid, theta, plain)
+    # a mid-solve state (non-uniform duals), 10 iterations through the sweep
+    # kernel: only an input of the checks below, which hold every kernel
+    # against its plain version on it
+    mid = initialize(prob, theta, bounds, x1, u0, opts64)
+    for _ in range(10):
+        mid = iteration(prob, bounds, mid, theta, opts64)
     torch.cuda.synchronize()
-    emit("mid_state", plain_iterations=10, seconds=time.perf_counter() - t0)
+    emit("mid_state", iterations=10, seconds=time.perf_counter() - t0)
 
     # a mid-solve state of the double integrator (64 lanes, varied starts)
     gen = torch.Generator(device="cpu").manual_seed(a.seed + 2)
@@ -1506,6 +1778,76 @@ def main():
         add_kernel(f"forward_trial_{sfx[dtype]}", src,
                    "ipddp2tpu/ops/forward_pallas.py:716", t_c, t_d, t_t)
 
+    # ---- kernels on the campaign's models (B = 100, T = 100) -------------
+    # mid-solve states of the six models on the campaign's instances
+    t0 = time.perf_counter()
+    mids = {}
+    for name, mod, _ in CAMPAIGN:
+        th_m, b_m, x_m, u_m = mod.from_params(
+            convert.params_rows(mod.PARAMS), torch.float64, dev)
+        mids[name] = (th_m, b_m, mid_state(more[name], th_m, b_m, x_m, u_m,
+                                           10))
+    torch.cuda.synchronize()
+    emit("mid_state", models=list(mids), batch=CAMPAIGN_SEEDS,
+         iterations=10, seconds=time.perf_counter() - t0)
+    atol = opts64.inertia_atol
+    bk_fields = {}
+    for dtype in (torch.float64, torch.float32):
+        kname = f"backward_sweep_bk_{sfx[dtype]}"
+        per_model = {}
+        for name in CONTACT:
+            th_m, _, s_m = mids[name]
+            args = perturb(sweep_inputs(more[name], cast_tree(th_m, dtype),
+                                        cast_tree(s_m, dtype)),
+                           more[name].nu)
+            per_model[name] = check_bk(f"{kname}/{name}", args,
+                                       dims_bk[name], atol, 10)
+        bk_fields[dtype] = per_model
+        emit("kernels", name=kname, dtype=str(dtype), batch=CAMPAIGN_SEEDS,
+             T=100, **per_model)
+        add_kernel(kname, "ipddp2tpu_torch/ops/csrc/backward_sweep_bk.cuh",
+                   "ipddp2tpu/backward.py:219 (XLA scan branch, no Pallas "
+                   "kernel)", per_model["acrobot"], per_model["cartpole"],
+                   per_model["pushing"])
+    # the LDL^T instantiations of the smooth models' dimensions
+    ldl_models = {}
+    for dtype in (torch.float64, torch.float32):
+        for name in ("concar_quad", "quadrotor", "cartpole_swingup"):
+            th_m, _, s_m = mids[name]
+            args = perturb(sweep_inputs(more[name], cast_tree(th_m, dtype),
+                                        cast_tree(s_m, dtype)),
+                           more[name].nu)
+            ldl_models[f"{name}/{sfx[dtype]}"] = check_kernel(
+                f"backward_sweep_{sfx[dtype]}/{name}", args,
+                dict(dims_of(more[name]), refine=refine), rtol, 0,
+                need_both=False)["max_rel_err"]
+    emit("kernels_by_model", name="backward_sweep (ldl)",
+         max_rel_err=ldl_models)
+    # K3 / K4 with each new model's device functions, float64, K = 8
+    fwd_models = {}
+    for name, mod, _ in CAMPAIGN:
+        th_m, b_m, s_m = mids[name]
+        deriv = evaluate_derivatives(more[name], th_m, s_m.x, s_m.u, s_m.phi)
+        gains = backward_pass(
+            more[name], deriv, (relax_constraints(more[name], s_m.c_raw,
+                                                  s_m.mu),
+                                s_m.il, s_m.iu, s_m.phi, s_m.zl, s_m.zu),
+            s_m.mu, s_m.reg_last,
+            resolve_options(Options(optimality_tolerance=1e-7),
+                            more[name])).gains
+        fa = perturb_forward(forward_args(more[name], th_m, b_m, s_m, gains,
+                                          plain))
+        # outside the boundary the swing-up's closed loop diverges, and one
+        # rounding grows to O(1) over 100 stages (1.85 relative in x on the
+        # H100): those candidates are reported there, their flags held
+        m_f, t_f, bad = check_forward(
+            f"forward/f64/{name}", fa, K, torch.float64, 10,
+            need_both_flags=False, hold_outside=name != "cartpole_swingup")
+        assert not bad, "\n".join(bad)
+        fwd_models[name] = dict(metrics=m_f, trial=t_f)
+    emit("forward_by_model", dtype=str(torch.float64), K=K,
+         batch=CAMPAIGN_SEEDS, T=100, **fwd_models)
+
     # ---- probes ----------------------------------------------------------
     probe_rows = (("mul_chain", "scripts/tpu_dd_probe.py:49"),
                   ("dynamics_chain", "scripts/tpu_dd_probe.py:98"))
@@ -1591,7 +1933,7 @@ def main():
          lane0=dict(objective=float(sol.objective[0]),
                     iterations=int(sol.iterations[0]),
                     converged=bool(sol.converged[0]),
-                    dual_inf=float(sol.dual_inf[0])))
+                    dual_inf=float(sol.dual_inf[0]), **lane0_split(info)))
     emit("mixed_vs_pure", batch=a.batch, pure_f64_seconds=pure_seconds,
          mixed_seconds=wall, mixed_over_pure=wall / pure_seconds)
     assert all_finite(sol)
@@ -1624,6 +1966,53 @@ def main():
     fields, finite = residue_solves(prob, MIXED_ITERATIONS, dev)
     emit("residue", **fields)
     assert finite
+
+    # ---- campaign: the six models' 100 reference instances --------------
+    bk64, bk32 = "backward_sweep_bk_f64", "backward_sweep_bk_f32"
+    campaign_launches = {}
+    opts_campaign = Options(optimality_tolerance=1e-7)  # run_benchmarks.py
+    for name, mod, results in CAMPAIGN:
+        th_c, b_c, x_c, u_c = campaign_batch(name, mod, torch.float64, dev)
+        sol, wall, counts = timed_solve(more[name], b_c, x_c, u_c,
+                                        theta=th_c, options=opts_campaign)
+        fields = campaign_fields(name, mod, results, sol, wall, counts)
+        emit("campaign", **fields)
+        path_names = (bk64,) if name in CONTACT else ("backward_sweep_f64",)
+        campaign_gates(name, fields, sol, counts, path_names)
+        record(f"campaign/{name}", counts, path_names)
+        for k, v in counts.items():
+            campaign_launches[k] = campaign_launches.get(k, 0) + v
+        if name == "acrobot":
+            # the same batch through the hybrid search: K3 / K4 inside a
+            # contact solve
+            sol, wall, counts = timed_solve(
+                more[name], b_c, x_c, u_c, theta=th_c,
+                options=Options(optimality_tolerance=1e-7,
+                                ls_speculative=K, ls_spec_continue=True))
+            fields = campaign_fields(name, mod, results, sol, wall, counts)
+            emit("campaign", search="hybrid", K=K, **fields)
+            hyb_names = (bk64, "forward_metrics_f64", "forward_trial_f64")
+            campaign_gates(name, fields, sol, counts, hyb_names)
+            record("campaign/acrobot_hybrid", counts, hyb_names)
+            for k, v in counts.items():
+                campaign_launches[k] = campaign_launches.get(k, 0) + v
+            # 20 iterations in float32: the bk instantiation in float
+            th32, b32c, x32c, u32c = campaign_batch(name, mod,
+                                                    torch.float32, dev)
+            sol, wall, counts = timed_solve(
+                more[name], b32c, x32c, u32c, theta=th32,
+                options=Options(optimality_tolerance=1e-7,
+                                max_iterations=20))
+            finite = all_finite(sol) and sol.x.dtype == torch.float32
+            emit("campaign_f32", model=name, iterations=20, seconds=wall,
+                 finite=finite, launches={k: v for k, v in counts.items()
+                                          if v})
+            assert finite
+            record("campaign_f32/acrobot", counts, (bk32,))
+            by_name[bk32]["launches"] = counts[bk32]
+    by_name[bk64]["launches"] = campaign_launches[bk64]
+    emit("campaign_launches", launches={k: v for k, v in
+                                        campaign_launches.items() if v})
 
     # ---- turns: mixed against pure f64 in turns on the same batch --------
     if a.turns:

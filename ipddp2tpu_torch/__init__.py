@@ -6,8 +6,9 @@ the TPU kernels rewritten by hand as CUDA kernels. It imports `torch`, never
 `jax`, and nothing of the JAX package.
 
 So far the port covers the batched solve with the backtracking, the
-speculative and the hybrid line search, and the chunked and mixed-precision
-solves on top of it:
+speculative and the hybrid line search, the chunked and mixed-precision
+solves on top of it, the eight benchmark models and the three inertia
+oracles (pivoted LDL^T, rook Bunch-Kaufman, eigh):
 
     Problem, Bounds, Options, solve, solve_batch      — functional core
     solve_chunked, run_chunked                        — chunked loop: limits
@@ -17,9 +18,15 @@ solves on top of it:
                                                         endgame, restart
                                                         rescue
     autotune.tune                                     — mode table (empty)
-    models.concar, models.double_integrator           — benchmark problems
+    models.concar, concar_quad, double_integrator,
+    quadrotor, cartpole_swingup, acrobot, cartpole,
+    pushing                                           — benchmark problems
+    ops.bk, ops.ldlt                                  — the inertia oracles
     ops.backward_cuda.backward_sweep_cuda             — the backward-sweep
-                                                        kernel (f32 and f64)
+                                                        kernel (f32 and f64;
+                                                        an LDL^T and a
+                                                        Bunch-Kaufman
+                                                        instantiation)
     ops.forward_cuda.forward_metrics_cuda,
     ops.forward_cuda.forward_trial_cuda               — the line search's
                                                         rollout kernels

@@ -40,6 +40,14 @@ version, or — on a GPU — the hand-written kernel of `ops.backward_cuda`,
 which computes the same function in one launch. Its inputs are prepared once
 per backward pass (`prepare_sweep`) and every attempt of the ladder is one
 launch on them (`sweep_prepared`): only reg and delta_c change in between.
+
+The stage's KKT solve follows `options.inertia_method` as the JAX package's
+scan branches on it (ipddp2tpu/backward.py:215-249): "ldl" (and an
+unresolved "auto") the pivoted LDL^T with refinement and residual gate;
+"bk" rook Bunch-Kaufman (`ops/bk.py`: ok = info == 0, singular = info > 0,
+no gate); "eigh" the eigendecomposition oracle (no gate). The ldl and bk
+solves each have an instantiation of the sweep kernel; eigh runs the plain
+sweep only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,7 +58,9 @@ import torch
 
 from .derivatives import DerivativeBundle
 from .ops.backward_cuda import prepare_sweep, sweep_prepared
-from .ops.ldlt import ldlt_factor_pivoted, ldlt_solve_refined
+from .ops.bk import bk_factor_rook, bk_inertia, bk_solve
+from .ops.ldlt import (eigh_factor_and_inertia, eigh_solve,
+                       ldlt_factor_pivoted, ldlt_solve_refined)
 from .options import Options
 from .problem import Problem
 
@@ -102,6 +112,13 @@ def costate_scan(deriv: DerivativeBundle, phi: Tensor) -> Tensor:
     return torch.stack(out, dim=1)
 
 
+def stage_solve_method(options: Options) -> str:
+    """The stage solve `options.inertia_method` names: "bk", "eigh", or
+    "ldl" (which an unresolved "auto" takes, as in the JAX package)."""
+    method = options.inertia_method
+    return method if method in ("bk", "eigh") else "ldl"
+
+
 def _run_pass(problem: Problem, deriv: DerivativeBundle, nominal,
               mu: Tensor, reg: Tensor, delta_c: Tensor, options: Options,
               second=None):
@@ -119,16 +136,19 @@ def _run_pass(problem: Problem, deriv: DerivativeBundle, nominal,
         deriv.lTx, deriv.lTxx, mu, reg, delta_c,
         nx=problem.nx, nu=problem.nu, nc=problem.nc,
         refine=max(options.refine_steps, 1),
-        rtol=options.kkt_residual_rtol)
+        rtol=options.kkt_residual_rtol, inertia=stage_solve_method(options),
+        atol=options.inertia_atol)
     return Gains(*gains_t), dL, fail, singular
 
 
 def sweep_plain(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
                 c_rel, il, iu, phi, zl, zu, lTx, lTxx, mu, reg, delta_c,
-                *, nx, nu, nc, refine, rtol):
+                *, nx, nu, nc, refine, rtol, inertia="ldl", atol=1e-12):
     """The sweep on flat arguments — the signature of
     `ops.backward_cuda.backward_sweep_cuda`, whose plain version this is
-    (`sec` may be None). Returns (gains tuple, dL, fail, singular)."""
+    (`sec` may be None). `inertia` is the stage solve ("ldl", "bk",
+    "eigh"); ldl reads `refine` and `rtol`, bk and eigh `atol`. Returns
+    (gains tuple, dL, fail, singular)."""
     B, T = il.shape[0], il.shape[1]
     m = nu + nc
     dtype, device = il.dtype, il.device
@@ -178,17 +198,34 @@ def sweep_plain(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
             [torch.cat([-Qu[:, :, None], -Bm], dim=2),
              torch.cat([-c_t[:, :, None], -cx_t], dim=2)], dim=1)   # [B, m, nx+1]
 
-        # Diagonal-pivoted LDL^T: pivot signs give the exact inertia when
-        # the factorization is sound; soundness is certified a posteriori
-        # by the refined solve's backward-stability residual. A breakdown
-        # is answered exactly like wrong inertia — bump reg and restart
-        # (reference escape hatch: src/inertia_correction.jl:266-273).
-        factors = ldlt_factor_pivoted(K)
-        X, solve_ok = ldlt_solve_refined(
-            factors, K, rhs, refine_steps=refine,
-            check_residual=True, residual_rtol=rtol)
-        stage_ok = factors.ok & (factors.n_pos == nu) & solve_ok
-        stage_singular = factors.n_zero > 0
+        if inertia == "eigh":
+            factors = eigh_factor_and_inertia(K, atol=atol)
+            X = eigh_solve(factors, rhs)
+            stage_ok = factors.ok & (factors.n_pos == nu)
+            stage_singular = factors.n_zero > 0
+        elif inertia == "bk":
+            # Reference-faithful rook Bunch-Kaufman (reference:
+            # src/inertia_correction.jl:257-276): plain substitution, no
+            # refinement or residual gate; singular = info > 0; the ladder
+            # on np != nu or info != 0.
+            bkf = bk_factor_rook(K)
+            n_pos = bk_inertia(bkf, atol=atol)[0]
+            X = bk_solve(bkf, rhs)
+            stage_ok = (bkf.info == 0) & (n_pos == nu)
+            stage_singular = bkf.info > 0
+        else:
+            # Diagonal-pivoted LDL^T: pivot signs give the exact inertia when
+            # the factorization is sound; soundness is certified a
+            # posteriori by the refined solve's backward-stability residual.
+            # A breakdown is answered exactly like wrong inertia — bump reg
+            # and restart (reference escape hatch:
+            # src/inertia_correction.jl:266-273).
+            factors = ldlt_factor_pivoted(K)
+            X, solve_ok = ldlt_solve_refined(
+                factors, K, rhs, refine_steps=refine,
+                check_residual=True, residual_rtol=rtol)
+            stage_ok = factors.ok & (factors.n_pos == nu) & solve_ok
+            stage_singular = factors.n_zero > 0
         alpha, beta = X[:, :nu, 0], X[:, :nu, 1:]
         psi, omega = X[:, nu:, 0], X[:, nu:, 1:]
 
@@ -219,30 +256,37 @@ def sweep_plain(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
 
 
 def _use_cuda_kernel(options: Options, ref: Tensor) -> bool:
+    """Whether the sweep takes a kernel: "ldl" and "bk" have one each
+    (under "auto" on CUDA tensors, always under "cuda"); "eigh" has none,
+    as in the JAX package, and "cuda" with it raises."""
     mode = options.backward_kernel
-    if mode == "cuda":
-        return True
-    # auto never overrides an explicit non-LDLT inertia oracle: the kernel
-    # counts exact-zero pivots of the pivoted LDL^T, nothing else
-    ldl = options.inertia_method in ("ldl", "auto")
-    return mode == "auto" and ldl and ref.is_cuda
+    if stage_solve_method(options) == "eigh":
+        if mode == "cuda":
+            raise ValueError(
+                'backward_kernel="cuda" with inertia_method="eigh": the '
+                "eigh oracle has no kernel; pass backward_kernel=\"auto\" "
+                'or "torch"')
+        return False
+    return mode == "cuda" or (mode == "auto" and ref.is_cuda)
 
 
 def sweep_attempts(problem: Problem, deriv: DerivativeBundle, nominal,
                    second, mu: Tensor, options: Options):
     """The backward sweep of one backward pass as a function
     `attempt(reg, delta_c)` of the per-instance regularization: the CUDA
-    kernel on a GPU (or whenever `backward_kernel="cuda"`, which raises for
-    CPU tensors), else the plain version `_run_pass`. For the kernel, the
-    inputs that no attempt changes are checked and packed here, once."""
+    kernel of the stage solve (ldl or bk) on a GPU (or whenever
+    `backward_kernel="cuda"`, which raises for CPU tensors), else the plain
+    version `_run_pass`. For the kernel, the inputs that no attempt changes
+    are checked and packed here, once."""
     if options.quasi_newton:
         second = None
+    use_kernel = _use_cuda_kernel(options, mu)
     if options.backward_kernel == "cuda" and not mu.is_cuda:
         raise RuntimeError(
             'backward_kernel="cuda" needs tensors on a GPU, got '
             f"{mu.device}; pass backward_kernel=\"torch\" for the plain "
             "sweep")
-    if not _use_cuda_kernel(options, mu):
+    if not use_kernel:
         return lambda reg, delta_c: _run_pass(
             problem, deriv, nominal, mu, reg, delta_c, options,
             second=second)
@@ -253,12 +297,13 @@ def sweep_attempts(problem: Problem, deriv: DerivativeBundle, nominal,
         deriv.fx, deriv.fu, deriv.lx, deriv.lu, deriv.lxx, deriv.lux,
         deriv.luu, deriv.cx, deriv.cu, sec, c_rel, il, iu, phi, zl, zu,
         deriv.lTx, deriv.lTxx, mu,
-        nx=problem.nx, nu=problem.nu, nc=problem.nc)
+        nx=problem.nx, nu=problem.nu, nc=problem.nc,
+        inertia=stage_solve_method(options))
 
     def attempt(reg, delta_c):
         gains_t, dL, fail, singular = sweep_prepared(
             prepared, reg, delta_c, refine=max(options.refine_steps, 1),
-            rtol=options.kkt_residual_rtol)
+            rtol=options.kkt_residual_rtol, atol=options.inertia_atol)
         return Gains(*gains_t), dL, fail, singular
 
     return attempt

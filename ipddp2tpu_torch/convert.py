@@ -13,6 +13,8 @@ values carry one in front, which is the port's batch-first layout: pass
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -20,6 +22,10 @@ from .backward import Gains
 from .derivatives import DerivativeBundle
 from .problem import Bounds
 from .solve import SolverState
+
+# the instance data of the JAX package's 100-seed campaigns
+# (`experiments/run_benchmarks.py` writes one row per seed)
+PARAMS_DIR = Path(__file__).resolve().parents[1] / "experiments" / "params"
 
 _INT_FIELDS = ("filter_n", "k", "j", "ls_resets", "num_ls", "status")
 _BOOL_FIELDS = ("converged",)
@@ -91,3 +97,16 @@ def state_to_numpy(state: SolverState, batched=True) -> dict:
         a = t.detach().cpu().numpy()
         out[name] = a if batched else a[0]
     return out
+
+
+def params_rows(name: str, rows=None, directory=None) -> np.ndarray:
+    """Rows of `experiments/params/<name>` (whitespace-separated floats, one
+    instance a line, written with `repr(float)` so that they read back bit
+    for bit) as a float64 array `[n, columns]`; `rows` selects lines (0 =
+    seed 1). A model's `from_params` turns them into
+    (theta, bounds, x1, u0)."""
+    path = Path(directory or PARAMS_DIR) / name
+    data = np.array([[float(v) for v in line.split()]
+                     for line in path.read_text().splitlines()
+                     if line.strip()], dtype=np.float64)
+    return data if rows is None else data[np.asarray(rows)]

@@ -150,6 +150,23 @@ def seed1_instance(dtype=torch.float64, device=None):
     return theta, SEED1_F_LIM, SEED1_TAU_LIM, x1
 
 
+PARAMS = "concar.txt"        # experiments/params, see from_params
+
+
+def from_params(rows, dtype=torch.float64, device=None):
+    """Instances from rows of `experiments/params/concar.txt` (or
+    `concar_quad.txt`), `[B, 18]` in `experiments/run_benchmarks.py`'s
+    layout: f_lim, tau_lim, the four obstacles (x, y, r), x1. Returns
+    (Theta [B,4,3], Bounds [B,T,NU], x1 [B,NX], u0 [B,T,NU])."""
+    rows = torch.as_tensor(rows, dtype=torch.float64)
+    B = rows.shape[0]
+    to = lambda a: a.to(dtype=dtype, device=device)
+    theta = Theta(obstacles=to(rows[:, 2:14].reshape(B, NUM_OBSTACLES, 3)))
+    return (theta, bounds(rows[:, 0], rows[:, 1], dtype=dtype, device=device),
+            to(rows[:, 14:18].contiguous()),
+            initial_controls(dtype, device).expand(B, T, NU))
+
+
 RESIDUE_R5 = Path(__file__).with_name("concar_residue_r5.json")
 
 

@@ -22,6 +22,16 @@ asynchronous copies one stage ahead; see the source's header.
 `launch_geometry` computes G, the instances per block and the block's shared
 memory here in Python, and refuses m > 32 and blocks above the card's 227 KB.
 
+The stage solve is a compile-time choice of the same source. The LDL^T
+instantiation above serves `inertia_method="ldl"` (and "auto" where it
+resolves to it). The Bunch-Kaufman instantiation (`-DSWEEP_BK=1`,
+`csrc/backward_sweep_bk.cuh`) serves `inertia_method="bk"`, the contact
+models' oracle: rook-pivoted Bunch-Kaufman with the reference's inertia
+count and plain substitution, one warp an instance and its KKT matrix in
+shared memory, so m = nu + nc up to `MAX_KKT_BK`; its plain version is
+`sweep_plain(..., inertia="bk")`. `launch_geometry(..., inertia=...)` and
+the launch counts are per instantiation. The eigh oracle has no kernel.
+
 Prepare and launch are two steps. Of the 21 inputs only `reg` and `delta_c`
 change between the attempts of the regularization ladder, so
 `prepare_sweep` checks and packs the other 19 once per backward pass and
@@ -47,14 +57,21 @@ SOURCE = _build.CSRC / "backward_sweep.cu"
 
 # launches made by the wrapper, per kernel name; a run that must show it
 # went through the kernel sets them to 0 before and reads them after
-launch_counts = {"backward_sweep_f32": 0, "backward_sweep_f64": 0}
+launch_counts = {"backward_sweep_f32": 0, "backward_sweep_f64": 0,
+                 "backward_sweep_bk_f32": 0, "backward_sweep_bk_f64": 0}
 
-_KERNEL_OF = {torch.float32: "backward_sweep_f32",
-              torch.float64: "backward_sweep_f64"}
+# the C functions of a library, by type (both instantiations name them so)
+_FUNCTION_OF = {torch.float32: "backward_sweep_f32",
+                torch.float64: "backward_sweep_f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+INERTIA = ("ldl", "bk")        # the stage solves with a kernel
 _libs = {}
 _N_PTRS = 33
 # the largest group of lanes that can own an instance (one warp)
 MAX_KKT = 32
+# the Bunch-Kaufman instantiation deals the rows of a warp's instance over
+# its lanes; beyond this its shared memory would not fit a block anyway
+MAX_KKT_BK = 64
 # the inputs that stay the same over the attempts of one backward pass
 _FIXED = ("fx", "fu", "lx", "lu", "lxx", "lux", "luu", "cx", "cu", "sec",
           "c_rel", "il", "iu", "phi", "zl", "zu", "lTx", "lTxx", "mu")
@@ -63,6 +80,19 @@ _FIXED = ("fx", "fu", "lx", "lu", "lxx", "lux", "luu", "cx", "cu", "sec",
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def kernel_name(dtype, inertia: str = "ldl") -> str:
+    """The launch-count key of the instantiation that serves `inertia`."""
+    tag = "bk_" if inertia == "bk" else ""
+    return f"backward_sweep_{tag}{_SUFFIX[dtype]}"
+
+
+def _refuse_inertia(inertia: str):
+    if inertia not in INERTIA:
+        raise ValueError(
+            f"backward sweep kernel: inertia {inertia!r} has no kernel "
+            f"(kernels: {INERTIA}); the eigh oracle runs the plain sweep")
 
 
 class Geometry(NamedTuple):
@@ -74,38 +104,58 @@ class Geometry(NamedTuple):
     smem_bytes: dict            # per block, by torch dtype
 
 
-def _instance_values(nx: int, nu: int, nc: int, itemsize: int) -> int:
-    """Values of shared memory per instance: the layout `Lay<T>` of the
-    source, every run of the two stage buffers padded to 16 bytes."""
+def _instance_values(nx: int, nu: int, nc: int, itemsize: int,
+                     inertia: str = "ldl") -> int:
+    """Values of shared memory per instance: the layout `Lay<T>` (ldl) or
+    `LayBK<T>` (bk) of the source, every run of the two stage buffers padded
+    to 16 bytes."""
     a = 16 // itemsize
     up = lambda n: (n + a - 1) // a * a
     m, nk, nz = nu + nc, nx + 1, nx + nu
-    lanes = 1 << max(m - 1, 0).bit_length()
     runs = (nx * nx, nx * nu, nx, nu, nx * nx, nu * nx, nu * nu, nc * nx,
             nc * nu, nz * nz, nc, nu, nu, nc, nu, nu)
     stage = sum(up(n) for n in runs)
-    rest = (m * (m + 1) + m * (lanes + 1) + 2 * m * nk + 2 * nx * nx
-            + 2 * nx + m)
+    if inertia == "bk":
+        # A [m][m+1], rhs / forward / backward / solution [m][nk], C, Vxx,
+        # Vx, Vx', D, e, perm, 4 m multipliers
+        rest = (m * (m + 1) + 4 * m * nk + 2 * nx * nx + 2 * nx + 3 * m
+                + 4 * m)
+    else:
+        lanes = 1 << max(m - 1, 0).bit_length()
+        rest = (m * (m + 1) + m * (lanes + 1) + 2 * m * nk + 2 * nx * nx
+                + 2 * nx + m)
     return up(2 * stage + rest)
 
 
-def launch_geometry(nx: int, nu: int, nc: int) -> Geometry:
-    """G, instances per block, threads and shared-memory bytes per block.
-    A block is 4 warps where its float64 shared memory fits the card's
-    227 KB, else 2, else 1. Raises ValueError for a KKT size m = nu + nc
-    above 32 (an instance must fit a warp) and for dimensions whose smallest
-    block does not fit."""
+def launch_geometry(nx: int, nu: int, nc: int,
+                    inertia: str = "ldl") -> Geometry:
+    """G, instances per block, threads and shared-memory bytes per block of
+    the instantiation that serves `inertia` ("ldl" or "bk"). A block is 4
+    warps where its float64 shared memory fits the card's 227 KB, else 2,
+    else 1. The LDL^T kernel: G the smallest power of two >= m = nu + nc;
+    raises ValueError for m above 32 (an instance must fit a warp). The
+    Bunch-Kaufman kernel: G = 32 (a warp an instance), m up to
+    `MAX_KKT_BK`. Raises ValueError too for dimensions whose smallest block
+    does not fit."""
+    _refuse_inertia(inertia)
     m = nu + nc
     if m < 1 or min(nx, nu) < 1 or nc < 0:
         raise ValueError(f"backward sweep: bad dimensions nx={nx}, nu={nu}, "
                          f"nc={nc}")
-    if m > MAX_KKT:
+    if inertia == "bk":
+        if m > MAX_KKT_BK:
+            raise ValueError(
+                f"backward sweep kernel (bk): KKT size nu + nc = {m} > "
+                f"{MAX_KKT_BK}; use backward_kernel=\"torch\"")
+        lanes = 32
+    elif m > MAX_KKT:
         raise ValueError(
             f"backward sweep kernel: KKT size nu + nc = {m} > {MAX_KKT}: a "
             "group of lanes of one warp owns an instance; use "
             'backward_kernel="torch" for this problem')
-    lanes = 1 << (m - 1).bit_length()
-    per_instance = {dt: _instance_values(nx, nu, nc, size) * size
+    else:
+        lanes = 1 << (m - 1).bit_length()
+    per_instance = {dt: _instance_values(nx, nu, nc, size, inertia) * size
                     for dt, size in ((torch.float32, 4), (torch.float64, 8))}
     for warps in (4, 2, 1):
         ipb = warps * 32 // lanes
@@ -119,32 +169,38 @@ def launch_geometry(nx: int, nu: int, nc: int) -> Geometry:
 
 
 def start_build(nx: int, nu: int, nc: int, verbose: bool = False,
-                defines=()):
-    """Start `nvcc` for one (nx, nu, nc) without waiting; `build.finish`
-    waits. Several builds started together run in parallel. `defines` are
-    further `-D` flags (a variant of the source, built beside the usual
-    library under a name of its own)."""
-    geo = launch_geometry(nx, nu, nc)
+                defines=(), inertia: str = "ldl"):
+    """Start `nvcc` for one (nx, nu, nc) and stage solve without waiting;
+    `build.finish` waits. Several builds started together run in parallel.
+    `defines` are further `-D` flags (a variant of the source, built beside
+    the usual library under a name of its own)."""
+    geo = launch_geometry(nx, nu, nc, inertia)
     tag = "".join("_" + d.replace("=", "") for d in defines)
-    return _build.start(f"backward_sweep_nx{nx}_nu{nu}_nc{nc}{tag}", SOURCE,
+    solve = "bk_" if inertia == "bk" else ""
+    bk = ("SWEEP_BK=1",) if inertia == "bk" else ()
+    return _build.start(f"backward_sweep_{solve}nx{nx}_nu{nu}_nc{nc}{tag}",
+                        SOURCE,
                         defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}",
-                                 f"IPB={geo.instances_per_block}", *defines),
-                        depends=(_build.CSRC / "async_copy.cuh",),
+                                 f"IPB={geo.instances_per_block}", *bk,
+                                 *defines),
+                        depends=(_build.CSRC / "async_copy.cuh",
+                                 _build.CSRC / "backward_sweep_bk.cuh"),
                         verbose=verbose)
 
 
 def build(dims, verbose: bool = False):
-    """Build the libraries for every (nx, nu, nc) in `dims`, all `nvcc`
-    processes started together. Raises on any failure."""
+    """Build the LDL^T libraries for every (nx, nu, nc) in `dims`, all
+    `nvcc` processes started together. Raises on any failure."""
     return _build.finish_all([start_build(*d, verbose=verbose)
                               for d in dims], verbose=verbose)
 
 
-def _load(nx: int, nu: int, nc: int, defines=()):
-    geo = launch_geometry(nx, nu, nc)
-    path = _build.finish(start_build(nx, nu, nc, defines=defines))
+def _load(nx: int, nu: int, nc: int, defines=(), inertia: str = "ldl"):
+    geo = launch_geometry(nx, nu, nc, inertia)
+    path = _build.finish(start_build(nx, nu, nc, defines=defines,
+                                     inertia=inertia))
     lib = ctypes.CDLL(str(path))
-    for name in _KERNEL_OF.values():
+    for name in _FUNCTION_OF.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
@@ -162,19 +218,19 @@ def _load(nx: int, nu: int, nc: int, defines=()):
     return lib
 
 
-def _library(nx: int, nu: int, nc: int):
-    key = (nx, nu, nc)
+def _library(nx: int, nu: int, nc: int, inertia: str = "ldl"):
+    key = (nx, nu, nc, inertia)
     if key not in _libs:
-        _libs[key] = _load(*key)
+        _libs[key] = _load(nx, nu, nc, inertia=inertia)
     return _libs[key]
 
 
 def use_variant(nx: int, nu: int, nc: int, defines=()):
-    """Make the library built with the further `-D` flags `defines` the one
-    that the wrapper launches for these dimensions from now on (no flags:
-    the usual one). For `profile_sweep`, which times variants of the source
-    in turns inside one process."""
-    _libs[(nx, nu, nc)] = _load(nx, nu, nc, tuple(defines))
+    """Make the LDL^T library built with the further `-D` flags `defines`
+    the one that the wrapper launches for these dimensions from now on (no
+    flags: the usual one). For `profile_sweep`, which times variants of the
+    source in turns inside one process."""
+    _libs[(nx, nu, nc, "ldl")] = _load(nx, nu, nc, tuple(defines))
 
 
 def _expected_shapes(B, T, nx, nu, nc):
@@ -207,33 +263,40 @@ class SweepInputs(NamedTuple):
     nx: int
     nu: int
     nc: int
+    inertia: str = "ldl"        # the stage solve: "ldl" or "bk"
 
 
 def prepare_sweep(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
-                  c_rel, il, iu, phi, zl, zu, lTx, lTxx, mu, *, nx, nu, nc):
+                  c_rel, il, iu, phi, zl, zu, lTx, lTxx, mu, *, nx, nu, nc,
+                  inertia="ldl"):
     """Check the inputs that stay fixed over the attempts of a backward pass
     and, for CUDA tensors, pack them dense for the kernel (slices of a larger
-    Jacobian are copied here, once). CPU tensors are kept as they are."""
+    Jacobian are copied here, once). CPU tensors are kept as they are.
+    `inertia` chooses the instantiation ("ldl" or "bk")."""
+    _refuse_inertia(inertia)
     B, T = il.shape[0], il.shape[1]
     named = dict(zip(_FIXED, (fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
                               c_rel, il, iu, phi, zl, zu, lTx, lTxx, mu)))
     dtype, device = il.dtype, il.device
     _check(named, _expected_shapes(B, T, nx, nu, nc), dtype, device)
     if device.type == "cpu":
-        return SweepInputs(tuple(named.values()), nx, nu, nc)
+        return SweepInputs(tuple(named.values()), nx, nu, nc, inertia)
     if device.type != "cuda":
         raise RuntimeError(f"backward_sweep_cuda: unsupported device {device}")
-    if dtype not in _KERNEL_OF:
+    if dtype not in _FUNCTION_OF:
         raise TypeError(f"backward_sweep_cuda: unsupported dtype {dtype}")
-    launch_geometry(nx, nu, nc)          # refuses what the kernel cannot take
-    return SweepInputs(tuple(dense(a) for a in named.values()), nx, nu, nc)
+    launch_geometry(nx, nu, nc, inertia)   # refuses what it cannot take
+    return SweepInputs(tuple(dense(a) for a in named.values()), nx, nu, nc,
+                       inertia)
 
 
 def sweep_prepared(prepared: SweepInputs, reg, delta_c, *, refine, rtol,
-                   profile=None):
+                   atol=1e-12, profile=None):
     """One sweep attempt at `reg`, `delta_c` (`[B]`) on prepared inputs;
-    returns what `backward_sweep_cuda` returns."""
+    returns what `backward_sweep_cuda` returns. The LDL^T instantiation
+    reads `refine` and `rtol`, the Bunch-Kaufman one `atol`."""
     nx, nu, nc = prepared.nx, prepared.nu, prepared.nc
+    inertia = prepared.inertia
     il, mu = prepared.tensors[11], prepared.tensors[18]
     B, T = il.shape[0], il.shape[1]
     dtype, device = il.dtype, il.device
@@ -243,10 +306,11 @@ def sweep_prepared(prepared: SweepInputs, reg, delta_c, *, refine, rtol,
     if device.type == "cpu":
         from ..backward import sweep_plain
         return sweep_plain(*prepared.tensors, reg, delta_c, nx=nx, nu=nu,
-                           nc=nc, refine=refine, rtol=rtol)
+                           nc=nc, refine=refine, rtol=rtol, inertia=inertia,
+                           atol=atol)
 
-    kernel = _KERNEL_OF[dtype]
-    lib = _library(nx, nu, nc)
+    kernel = kernel_name(dtype, inertia)
+    lib = _library(nx, nu, nc, inertia)
     # reg and delta_c are dropped when this function returns, before the
     # kernel has run: the caching allocator hands their memory only to
     # later work on this same stream
@@ -265,8 +329,10 @@ def sweep_prepared(prepared: SweepInputs, reg, delta_c, *, refine, rtol,
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, kernel)(ptrs, B, T, int(refine), float(rtol),
-                                   ctypes.c_void_p(stream))
+        tol = atol if inertia == "bk" else rtol
+        err = getattr(lib, _FUNCTION_OF[dtype])(ptrs, B, T, int(refine),
+                                                float(tol),
+                                                ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"{kernel}: launch refused, CUDA error {err} "
@@ -278,7 +344,7 @@ def sweep_prepared(prepared: SweepInputs, reg, delta_c, *, refine, rtol,
 def backward_sweep_cuda(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
                         c_rel, il, iu, phi, zl, zu, lTx, lTxx,
                         mu, reg, delta_c, *, nx, nu, nc, refine, rtol,
-                        profile=None):
+                        inertia="ldl", atol=1e-12, profile=None):
     """Full-batch backward sweep. All per-stage arguments are batch-leading
     `[B, T, ...]`; the per-instance scalars mu/reg/delta_c are `[B]`.
     Returns ((alpha, beta, psi, omega, chi_l, zeta_l, chi_u, zeta_u) as
@@ -286,13 +352,15 @@ def backward_sweep_cuda(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
     `backward._run_pass` attempt, batched: `prepare_sweep`, then
     `sweep_prepared`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    `inertia` chooses the instantiation: "ldl" (refine, rtol) or "bk"
+    (atol). CPU tensors take the plain version; CUDA tensors launch the
+    kernel.
     `profile`, if given, is an int64 CUDA tensor of 5 zeros to which thread
     0 of every block adds its clock cycles per section of the stage loop
     (assemble, factor, solve, gains, value); see `profile_sweep.py`.
     """
     prepared = prepare_sweep(fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
                              c_rel, il, iu, phi, zl, zu, lTx, lTxx, mu,
-                             nx=nx, nu=nu, nc=nc)
+                             nx=nx, nu=nu, nc=nc, inertia=inertia)
     return sweep_prepared(prepared, reg, delta_c, refine=refine, rtol=rtol,
-                          profile=profile)
+                          atol=atol, profile=profile)

@@ -33,8 +33,8 @@
 //    indices. Groups never talk to each other and warps never to other
 //    warps: the only barrier is `__syncwarp`. m > 32 does not fit a warp and
 //    is refused by the wrapper (largest m of the models that take this
-//    sweep: acrobot 15, concar 14; cartpole's 35 takes the Bunch-Kaufman
-//    route in the JAX package and is not served here).
+//    sweep: concar and concar_quad 14; the contact models, cartpole's m = 35
+//    among them, take the Bunch-Kaufman instantiation below).
 //  * Pivot search: an arg-max over the live diagonal (each lane keeps its
 //    own diagonal entry in a register) by a xor butterfly of (|d|, index)
 //    pairs with the rule of the plain version: largest |d|, the lower index
@@ -108,6 +108,12 @@
 // Compile-time parameters: -DNX=.. -DNU=.. -DNC=.. -DIPB=.. (one library per
 // tuple; -DSWEEP_UNROLL optional). Plain C interface for ctypes:
 // `backward_sweep_f32`, `backward_sweep_f64`, `backward_sweep_dims`.
+//
+// -DSWEEP_BK=1 builds the other stage solve instead: rook Bunch-Kaufman with
+// the reference's inertia count and plain substitution, a warp an instance,
+// for the contact models (backward_sweep_bk.cuh, which says what it
+// replaces and what bounds it). Without it the preprocessed kernel is the
+// LDL^T one above, unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -128,9 +134,15 @@ constexpr int pow2_at_least(int n) {
     while (g < n) g *= 2;
     return g;
 }
+#if SWEEP_BK
+// the Bunch-Kaufman instantiation: a warp owns an instance (backward_sweep_bk.cuh)
+constexpr int G = 32;
+static_assert(M >= 1, "the KKT size must be at least 1");
+#else
 constexpr int G = pow2_at_least(M);          // lanes that own one instance
-constexpr int NT = IPB * G;                  // threads per block
 static_assert(M >= 1 && G <= 32, "the KKT size must be 1..32");
+#endif
+constexpr int NT = IPB * G;                  // threads per block
 static_assert(NT % 32 == 0 && NT <= 1024, "a block is whole warps");
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -701,6 +713,15 @@ backward_sweep_kernel(const SweepArgs a, const int B, const int Tn,
     }
 }
 
+#if SWEEP_BK
+#include "backward_sweep_bk.cuh"
+#define SWEEP_KERNEL backward_sweep_bk_kernel
+#define SWEEP_INST(T) LayBK<T>::INST
+#else
+#define SWEEP_KERNEL backward_sweep_kernel
+#define SWEEP_INST(T) Lay<T>::INST
+#endif
+
 template <typename T>
 static int launch(const SweepArgs* args, int B, int Tn, int refine,
                   double rtol, cudaStream_t stream) {
@@ -711,14 +732,14 @@ static int launch(const SweepArgs* args, int B, int Tn, int refine,
     err = cudaDeviceGetAttribute(&max_smem,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
-    const size_t bytes = (size_t)Lay<T>::INST * IPB * sizeof(T);
+    const size_t bytes = (size_t)SWEEP_INST(T) * IPB * sizeof(T);
     if (bytes > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(backward_sweep_kernel<T>,
+    err = cudaFuncSetAttribute(SWEEP_KERNEL<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (B + IPB - 1) / IPB;
-    backward_sweep_kernel<T><<<blocks, NT, bytes, stream>>>(
+    SWEEP_KERNEL<T><<<blocks, NT, bytes, stream>>>(
         *args, B, Tn, refine, (T)rtol);
     return (int)cudaGetLastError();
 }
@@ -728,6 +749,8 @@ extern "C" {
 // Both return the CUDA error code of the launch (0 = launched). `args` is a
 // host array of 33 pointers in the order of SweepArgs (the last, `prof`,
 // may be null). The 16 stage tensors must start on 16-byte boundaries.
+// Built with SWEEP_BK, `refine` is ignored and `rtol` is the inertia
+// tolerance atol.
 int backward_sweep_f32(const void* const* ptrs, int B, int Tn, int refine,
                        double rtol, void* stream);
 int backward_sweep_f64(const void* const* ptrs, int B, int Tn, int refine,
@@ -768,7 +791,7 @@ int backward_sweep_f64(const void* const* ptrs, int B, int Tn, int refine,
 int backward_sweep_dims(int* out) {
     out[0] = NX; out[1] = NU; out[2] = NC; out[3] = G; out[4] = IPB;
     out[5] = NT;
-    out[6] = Lay<float>::INST * IPB * (int)sizeof(float);
-    out[7] = Lay<double>::INST * IPB * (int)sizeof(double);
+    out[6] = SWEEP_INST(float) * IPB * (int)sizeof(float);
+    out[7] = SWEEP_INST(double) * IPB * (int)sizeof(double);
     return 0;
 }

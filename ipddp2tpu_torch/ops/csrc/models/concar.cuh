@@ -45,12 +45,21 @@ __device__ __forceinline__ void stage(const T* x, const T* u, int t,
                                       const T* theta, T* x_next, T* c,
                                       T& cost) {
     dynamics(x, u, t, theta, x_next);
+#ifdef CONCAR_QUADRATIC_SLACK_PENALTY
+    // effort + quadratic penalty on the violation slacks (concar_quad)
+    T s = T(0);
+#pragma unroll
+    for (int i = 0; i < NUM_OBSTACLES; ++i) s += u[2 + i] * u[2 + i];
+    cost = T(0.05) * (T(5.0) * (u[0] * u[0]) + T(1.0) * (u[1] * u[1]))
+           + T(1000.0) * s;
+#else
     // effort + L1 penalty on the violation slacks
     T s = T(0);
 #pragma unroll
     for (int i = 0; i < NUM_OBSTACLES; ++i) s += u[2 + i];
     cost = T(0.05) * (T(5.0) * (u[0] * u[0]) + T(1.0) * (u[1] * u[1]))
            + T(50.0) * s;
+#endif
     // (r_obs + r_car)^2 - |xy - xy_obs|^2 - s- + s+
 #pragma unroll
     for (int i = 0; i < NUM_OBSTACLES; ++i) {

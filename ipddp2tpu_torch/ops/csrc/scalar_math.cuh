@@ -14,6 +14,8 @@ __device__ __forceinline__ float sin_(float v) { return sinf(v); }
 __device__ __forceinline__ double sin_(double v) { return sin(v); }
 __device__ __forceinline__ float cos_(float v) { return cosf(v); }
 __device__ __forceinline__ double cos_(double v) { return cos(v); }
+__device__ __forceinline__ float tan_(float v) { return tanf(v); }
+__device__ __forceinline__ double tan_(double v) { return tan(v); }
 __device__ __forceinline__ float log_(float v) { return logf(v); }
 __device__ __forceinline__ double log_(double v) { return log(v); }
 __device__ __forceinline__ float abs_(float v) { return fabsf(v); }

@@ -147,7 +147,8 @@ def start_build(problem: Problem, verbose: bool = False):
         f"forward_pass_{model}_nx{nx}_nu{nu}_nc{nc}_m{mask}", SOURCE,
         defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}", f"COMPL_MASK={mask}",
                  f'MODEL_HEADER="models/{header.name}"'),
-        depends=(header, _build.CSRC / "scalar_math.cuh",
+        depends=(*sorted(MODELS.glob("*.cuh")),     # a header may include
+                 _build.CSRC / "scalar_math.cuh",      # another's
                  _build.CSRC / "async_copy.cuh"), verbose=verbose)
 
 

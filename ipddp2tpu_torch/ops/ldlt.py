@@ -18,6 +18,12 @@ tiny (m = nu + nc) but there are batch x time of them.
 
 This is the plain PyTorch version of the factor-and-solve that the CUDA
 sweep kernel (`ops/csrc/backward_sweep.cu`) carries out per thread.
+
+Beside it stand the unpivoted LDL^T (`ldlt_factor`, behind
+`kkt_factor_and_inertia`) and the eigendecomposition oracle
+(`inertia_method="eigh"`: `eigh_factor_and_inertia`, `eigh_solve`), which no
+kernel computes: the JAX package runs eigh only as XLA's, and the port only
+as `torch.linalg.eigh`.
 """
 
 from __future__ import annotations
@@ -37,6 +43,38 @@ class LDLTFactors(NamedTuple):
     n_zero: Tensor # [...] int32: count of exactly-zero pivots
     perm: Optional[Tensor] = None  # [..., m] int64 pivot order;
                                    # factorization is of A[perm][:, perm]
+
+
+def ldlt_factor(A: Tensor, *, atol: float = 0.0) -> LDLTFactors:
+    """Unpivoted LDL^T of symmetric `A` (the lower triangle is used). By
+    Sylvester's law the pivot signs are the inertia of A whenever the
+    factorization exists; breakdown shows as exactly-zero pivots or
+    non-finite fill. `atol` is the zero-pivot tolerance (an exact zero by
+    default, the analog of LAPACK's info > 0)."""
+    m = A.shape[-1]
+    batch = A.shape[:-2]
+    if m == 0:
+        z = torch.zeros(batch, dtype=torch.int32, device=A.device)
+        return LDLTFactors(A, torch.ones(batch, dtype=torch.bool,
+                                         device=A.device), z, z)
+    idx = torch.arange(m, device=A.device)
+    M = A.clone()
+    for j in range(m):
+        dj = M[..., j, j]
+        below = idx > j
+        # guard the divide so a zero pivot never poisons the update via 0*inf
+        denom = torch.where(dj == 0, torch.ones_like(dj), dj)
+        l = torch.where(below, M[..., :, j] / denom[..., None],
+                        torch.zeros_like(dj)[..., None])
+        M = M - dj[..., None, None] * l[..., :, None] * l[..., None, :]
+        M[..., :, j] = torch.where(below, l, M[..., :, j])
+        M[..., j, j] = dj
+    d = torch.diagonal(M, dim1=-2, dim2=-1)
+    finite = torch.isfinite(M).all(dim=-1).all(dim=-1)
+    n_zero = (d.abs() <= atol).sum(dim=-1).to(torch.int32)
+    n_pos = (d > atol).sum(dim=-1).to(torch.int32)
+    return LDLTFactors(ld=M, ok=finite & (n_zero == 0), n_pos=n_pos,
+                       n_zero=n_zero)
 
 
 def ldlt_factor_pivoted(A: Tensor, *, atol: float = 0.0) -> LDLTFactors:
@@ -135,3 +173,53 @@ def ldlt_solve_refined(
     ok = _fro(r) <= residual_rtol * scale
     ok = ok & torch.isfinite(x).all(dim=-1).all(dim=-1)
     return x, ok
+
+
+def kkt_factor_and_inertia(K: Tensor, *, atol: float = 1e-12) -> LDLTFactors:
+    """Factor a KKT matrix and report its inertia: the caller checks
+    n_pos == nu and nonsingularity, like `np == num_controls` and
+    `info == 0` after the reference's `sytrf_rook!` + `inertia!`
+    (reference: src/inertia_correction.jl:257-266)."""
+    return ldlt_factor(K, atol=atol)
+
+
+class EighFactors(NamedTuple):
+    """Eigendecomposition-backed factorization: exact inertia, a pivot-free
+    solve (the oracle path, `inertia_method="eigh"`)."""
+
+    w: Tensor       # [..., m] eigenvalues
+    v: Tensor       # [..., m, m] eigenvectors
+    ok: Tensor
+    n_pos: Tensor
+    n_zero: Tensor
+
+
+def eigh_factor_and_inertia(K: Tensor, *, atol: float = 1e-12) -> EighFactors:
+    """Eigenvalues of the symmetric part of `K` (as the JAX package's eigh,
+    which symmetrizes its input) and their sign counts at `atol`."""
+    m = K.shape[-1]
+    batch = K.shape[:-2]
+    if m == 0:
+        z = torch.zeros(batch, dtype=torch.int32, device=K.device)
+        return EighFactors(K.new_zeros(batch + (0,)), K,
+                           torch.ones(batch, dtype=torch.bool,
+                                      device=K.device), z, z)
+    w, v = torch.linalg.eigh(0.5 * (K + K.transpose(-1, -2)))
+    n_pos = (w > atol).sum(dim=-1).to(torch.int32)
+    n_zero = (w.abs() <= atol).sum(dim=-1).to(torch.int32)
+    ok = torch.isfinite(w).all(dim=-1) & (n_zero == 0)
+    return EighFactors(w=w, v=v, ok=ok, n_pos=n_pos, n_zero=n_zero)
+
+
+def eigh_solve(factors: EighFactors, b: Tensor) -> Tensor:
+    """X = V diag(1/w) V^T b (an exactly-zero eigenvalue divides by 1);
+    b: [..., m] or [..., m, k]."""
+    if factors.w.shape[-1] == 0:
+        return b
+    squeeze = b.dim() == factors.v.dim() - 1
+    if squeeze:
+        b = b[..., None]
+    w = torch.where(factors.w == 0, torch.ones_like(factors.w), factors.w)
+    v = factors.v
+    x = v @ ((v.transpose(-1, -2) @ b) / w[..., None])
+    return x[..., 0] if squeeze else x

@@ -73,14 +73,16 @@ class Options:
                                         # not ported yet
     backward_kernel: str = "auto"       # batched backward-sweep dispatch:
                                         # "auto"  = the hand-written CUDA
-                                        #           sweep kernel when the
-                                        #           tensors are on a GPU and
-                                        #           inertia_method resolves
-                                        #           to "ldl", else the plain
-                                        #           PyTorch sweep
+                                        #           sweep kernel of the
+                                        #           stage solve ("ldl" or
+                                        #           "bk") when the tensors
+                                        #           are on a GPU; the plain
+                                        #           PyTorch sweep on the
+                                        #           CPU and for "eigh"
                                         # "cuda"  = always the CUDA kernel
-                                        #           (raises off-GPU or if
-                                        #           the build fails)
+                                        #           (raises off-GPU, for
+                                        #           "eigh", or if the
+                                        #           build fails)
                                         # "torch" = always the plain sweep
     ldlt_unroll: bool = True            # unused by the port (parity): the
                                         # JAX package's compile-size knob
@@ -173,11 +175,8 @@ class Options:
             raise NotImplementedError(
                 f"backward_mode={self.backward_mode!r}: the associative-scan "
                 "Riccati pass (parallel/) is not ported yet")
-        if self.inertia_method in ("bk", "eigh"):
-            raise NotImplementedError(
-                f"inertia_method={self.inertia_method!r}: the Bunch-Kaufman "
-                "and eigh oracles are not ported yet (they come with the "
-                "contact models)")
-        if self.inertia_method not in ("auto", "ldl"):
-            raise ValueError(f"inertia_method={self.inertia_method!r}")
+        if self.inertia_method not in ("auto", "ldl", "bk", "eigh"):
+            raise ValueError(
+                f"inertia_method={self.inertia_method!r}: expected 'auto', "
+                "'ldl', 'bk' or 'eigh'")
         return self

@@ -182,9 +182,9 @@ def resolve_options(options: Options, problem: Problem,
     """Resolve problem-dependent "auto" knobs to concrete values and refuse
     what the port does not implement yet, or what cannot run on `device`
     (`forward_kernel="cuda"` off the GPU or for a problem without device
-    functions). `inertia_method="auto"` -> "bk" on problems with mu-relaxed
-    complementarity rows or declared contact structure (which then raises:
-    the Bunch-Kaufman path is not ported yet), else "ldl". Idempotent."""
+    functions). `inertia_method="auto"` -> "bk" (rook Bunch-Kaufman,
+    `ops/bk.py`) on problems with mu-relaxed complementarity rows or
+    declared contact structure (`Problem.contact`), else "ldl". Idempotent."""
     options.validate()
     if device is not None:
         forward_route(problem, options, device)

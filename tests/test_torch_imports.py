@@ -32,7 +32,9 @@ def test_port_files_are_found():
     names = {p.name for p in FILES}
     assert {"solve.py", "backward.py", "backward_cuda.py", "convert.py",
             "forward_cuda.py", "probe_chain.py", "build.py", "chunked.py",
-            "autotune.py", "mixed.py", "chip_smoke.py"} <= names
+            "autotune.py", "mixed.py", "chip_smoke.py", "bk.py", "ldlt.py",
+            "concar_quad.py", "quadrotor.py", "cartpole_swingup.py",
+            "acrobot.py", "cartpole.py", "pushing.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -64,8 +66,16 @@ def test_every_kernel_has_its_source():
     probe = probe_chain.SOURCE.read_text()
     for name in probe_chain.launch_counts:
         assert name in probe, name
-    for model in ("concar", "double_integrator", "tiny_nc0"):
+    for model in ("concar", "double_integrator", "tiny_nc0", "concar_quad",
+                  "quadrotor", "cartpole_swingup", "acrobot", "cartpole",
+                  "pushing"):
         assert (forward_cuda.MODELS / f"{model}.cuh").exists()
+    # the Bunch-Kaufman instantiation of the sweep is a define of its source
+    from ipddp2tpu_torch.ops import backward_cuda
+    assert "SWEEP_BK" in backward_cuda.SOURCE.read_text()
+    assert (CSRC / "backward_sweep_bk.cuh").exists()
+    assert {"backward_sweep_bk_f32", "backward_sweep_bk_f64"} \
+        <= set(backward_cuda.launch_counts)
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES,
@@ -87,12 +97,17 @@ def test_importing_the_kernel_modules_builds_nothing():
 
 
 def test_models_name_their_device_functions():
-    from ipddp2tpu_torch.models import concar, double_integrator
+    import importlib
+    from ipddp2tpu_torch import models
     from ipddp2tpu_torch.ops import forward_cuda
-    for mod in (concar, double_integrator):
-        prob = mod.problem()
+    for name in models.__all__:
+        prob = importlib.import_module(f"ipddp2tpu_torch.models.{name}") \
+            .problem()
         header = forward_cuda._model_header(prob)
         text = header.read_text()
+        if name == "concar_quad":       # concar's functions, another cost
+            assert '#include "concar.cuh"' in text
+            text = (forward_cuda.MODELS / "concar.cuh").read_text()
         assert f"NX_ = {prob.nx}, NU_ = {prob.nu}, NC_ = {prob.nc}" in text
 
 

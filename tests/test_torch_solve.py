@@ -294,8 +294,8 @@ def test_cs_error_with_zero_mu_has_no_nan():
 @pytest.mark.parametrize("kwargs,err", [
     (dict(ls_speculative=-1), ValueError),
     (dict(backward_mode="parallel"), NotImplementedError),
-    (dict(inertia_method="bk"), NotImplementedError),
-    (dict(inertia_method="eigh"), NotImplementedError),
+    (dict(inertia_method="bk", backward_kernel="cuda"), RuntimeError),
+    (dict(inertia_method="eigh", backward_kernel="cuda"), ValueError),
     (dict(forward_kernel="pallas"), ValueError),
     (dict(backward_kernel="pallas"), ValueError),
     (dict(forward_kernel="cuda"), RuntimeError),      # no GPU asked for

@@ -137,3 +137,120 @@ def tiny_inputs(seed, batch, nc, dtype=np.float64):
         zl=(0.1 + rng.uniform(size=shp(T, nu))).astype(dtype),
         zu=(0.1 + rng.uniform(size=shp(T, nu))).astype(dtype),
         c=rng.standard_normal(shp(T, nc)).astype(dtype))
+
+
+def short_pair(jm, pm, T=T_SHORT):
+    """A model of both packages (`jm`, `pm`: a module of `ipddp2tpu.models`
+    and its port) at horizon T, the stage functions unchanged."""
+    import dataclasses
+    return (dataclasses.replace(jm.problem(), T=T),
+            dataclasses.replace(pm.problem(), T=T))
+
+
+def _first(tree):
+    return jax.tree.map(lambda a: a[0], tree)
+
+
+def check_model_against_jax(jm, pm, jtheta, ptheta, seed, B=3, T=4,
+                            rtol=1e-12, d_rtol=1e-10):
+    """A model's stage, terminal and constraint functions at random points
+    (instance 0's theta) and its whole derivative bundle on random
+    trajectories and duals of B instances, against the JAX model. `jtheta`,
+    `ptheta` carry the batch axis (or are None). Values agree to `rtol`
+    (the same formulas, other libm), the bundle to `d_rtol` (AD in other
+    association orders), both with an absolute floor of that times the
+    largest entry."""
+    import ipddp2tpu.derivatives as jd
+    from ipddp2tpu_torch import derivatives as pd
+    jp, pp = short_pair(jm, pm, T)
+    rng = np.random.default_rng(seed)
+    x = 0.3 * rng.standard_normal((B, T + 1, jm.NX))
+    u = 0.3 * rng.standard_normal((B, T, jm.NU))
+    phi = rng.standard_normal((B, T, jm.NC))
+    j0 = None if jtheta is None else _first(jtheta)
+    p0 = None if ptheta is None else pytree_first(ptheta)
+
+    def close(a, b, tol, what):
+        a, b = tnp(a), np.asarray(b)
+        assert a.shape == b.shape, what
+        np.testing.assert_allclose(a, b, rtol=tol,
+                                   atol=tol * max(np.abs(b).max(), 1e-300),
+                                   err_msg=what)
+
+    for t in range(T):
+        jx, ju = jnp.asarray(x[0, t]), jnp.asarray(u[0, t])
+        px, pu = torch.as_tensor(x[0, t]), torch.as_tensor(u[0, t])
+        close(pm.dynamics(px, pu, t, p0), jm.dynamics(jx, ju, t, j0), rtol,
+              "dynamics")
+        close(pm.stage_cost(px, pu, t, p0), jm.stage_cost(jx, ju, t, j0),
+              rtol, "stage_cost")
+        if jm.NC:
+            close(pm.constraints(px, pu, t, p0),
+                  jm.constraints(jx, ju, t, j0), rtol, "constraints")
+    close(pm.terminal_cost(torch.as_tensor(x[0, T]), p0),
+          jm.terminal_cost(jnp.asarray(x[0, T]), j0), rtol, "terminal_cost")
+
+    ref = jax.jit(jax.vmap(lambda th, a, b, c: jd.evaluate_derivatives(
+        jp, th, a, b, c, with_dynamics_hessian=True)))(
+            jtheta, jnp.asarray(x), jnp.asarray(u), jnp.asarray(phi))
+    out = pd.evaluate_derivatives(pp, ptheta, torch.as_tensor(x),
+                                  torch.as_tensor(u), torch.as_tensor(phi),
+                                  with_dynamics_hessian=True)
+    for name in out._fields:
+        a, b = getattr(out, name), getattr(ref, name)
+        if b is None or np.asarray(b).size == 0:
+            assert a is None or a.numel() == 0, name
+            continue
+        close(a, b, d_rtol, name)
+
+
+def pytree_first(tree):
+    """Instance 0 of a port theta (a NamedTuple of batched tensors)."""
+    from torch.utils import _pytree
+    return _pytree.tree_map(lambda a: a[0], tree)
+
+
+def params_instances(jm, name, n=100):
+    """The JAX generator's instances of the campaign
+    (`experiments/run_benchmarks.py`: `jax.random.split(PRNGKey(1), n)`), as
+    numpy pytrees: (theta, lower, upper, x1)."""
+    keys = jax.random.split(jax.random.PRNGKey(1), n)
+    if name in ("concar", "concar_quad"):
+        th, f_lim, tau_lim, x1 = jax.vmap(jm.random_instance)(keys)
+        b = jm.bounds(f_lim, tau_lim)
+    elif name == "quadrotor":
+        th, x1 = jax.vmap(jm.random_instance)(keys)
+        b = jm.bounds()
+    elif name == "cartpole_swingup":
+        th, x1 = None, jax.vmap(jm.random_instance)(keys)
+        b = jm.bounds()
+    else:
+        th = jax.vmap(jm.random_instance)(keys)
+        x1 = jnp.broadcast_to(jm.initial_state(), (n, jm.NX))
+        b = jm.bounds()
+    lower = np.broadcast_to(np.asarray(b.lower), (n, jm.T, jm.NU))
+    upper = np.broadcast_to(np.asarray(b.upper), (n, jm.T, jm.NU))
+    return (None if th is None else jax.tree.map(np.asarray, th), lower,
+            upper, np.asarray(x1))
+
+
+def check_params_reader(jm, pm, name):
+    """The port's reader of `experiments/params/<PARAMS>` against the JAX
+    generator that wrote the file: every value bit for bit."""
+    from torch.utils import _pytree
+    th, lower, upper, x1 = params_instances(jm, name)
+    pth, pb, px1, pu0 = pm.from_params(convert.params_rows(pm.PARAMS))
+    if th is None:
+        assert pth is None
+    else:
+        got = [tnp(a) for a in _pytree.tree_leaves(pth)]
+        want = jax.tree.leaves(th)
+        assert len(got) == len(want), name
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    np.testing.assert_array_equal(tnp(pb.lower), lower, err_msg=name)
+    np.testing.assert_array_equal(tnp(pb.upper), upper, err_msg=name)
+    np.testing.assert_array_equal(tnp(px1), x1, err_msg=name)
+    np.testing.assert_array_equal(
+        tnp(pu0), np.broadcast_to(np.asarray(jm.initial_controls()),
+                                  (len(x1), jm.T, jm.NU)), err_msg=name)
