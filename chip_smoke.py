@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--batch 2048] [--max-iterations 1000] [--ptxas]
                           [--kernels-only] [--log FILE] [--turns]
-                          [--parent DIR]
+                          [--parent DIR] [--costate-orders]
 
 Needs one CUDA device of compute capability 9.0 and `nvcc`; with no device it
 exits non-zero at the first phase. It imports `torch` and `ipddp2tpu_torch`
@@ -33,14 +33,16 @@ only. Phases, each printing one JSON line:
              all three dimensions, batches that do not fill their last
              block (B - 3 and 1), its time at 256 to 8192 lanes, the time of
              preparing its inputs, and its cycle counters. For the metrics
-             kernel (K3) also its checks at K = 1, 3, 8, 13, 40 on B, B - 3
+             kernel (K3) also its checks at K = 1, 3, 8, 13, 40 on 256, 253
              and 1 lanes of all three models (`metrics_grid`) and its time
              at 256 to 8192 lanes (`metrics_scaling`). On mid-solve states
              of the six further models (their 100 campaign instances, T=100,
              10 iterations): the Bunch-Kaufman sweep against
              `sweep_plain(inertia="bk")` on the three contact models in f64
              and f32 (flags equal on every lane, gains within BK_TOL; timed),
-             the LDL^T sweep on the three smooth ones (`kernels_by_model`),
+             the LDL^T sweep on the three smooth ones and on cartpole's
+             m = 35, a warp an instance (flags equal on every lane, timed;
+             `kernels_by_model`),
              K3 / K4 with each new model's device functions in f64, timed
              (`forward_by_model`);
   probes     the two chain probes, driven once at their size;
@@ -63,14 +65,31 @@ only. Phases, each printing one JSON line:
              golden objective (rtol 1e-4, dual error < 1e-7), that >= 95 %
              of the lanes converge and that K1 ran; `mixed_vs_pure` puts
              its wall time beside the flat solve's;
-  mixed_rescue  the first 128 lanes with a 120-iteration f32 phase in
-             chunks of 5, the stall freeze and the adaptive K: checks that
-             the rescue takes exactly the lanes phase 2 left unconverged and
-             solves >= 95 % of them;
-  residue    the 24 round-5 residue instances (the port's data file) through
-             the mixed solve and from scratch in pure f64: each lane's
-             status, iterations and KKT errors (checks that they are
-             finite);
+  mixed_rescue  (after `serve`, while the campaign runs) the first 128
+             lanes with a 120-iteration f32 phase in chunks of 5, the stall
+             freeze and the adaptive K: checks that the rescue takes exactly
+             the lanes phase 2 left unconverged and solves >= 95 % of them;
+  residue    (after `mixed_rescue`) the 24 round-5 residue instances (the
+             port's data file) through the mixed solve and from scratch in
+             pure f64: each lane's status, iterations and KKT errors (checks
+             that they are finite);
+  facade     concar's seed-1 instance built through the reference-style
+             `Solver` from per-stage (x, u) closures, published widths,
+             float64, default options (backtracking, the graph-replayed
+             plain rollout: a facade problem has no device functions; K2):
+             the golden rule (99 iterations, 4.46466505), its first two
+             iterations once more inside `utils.profiling.trace` (the trace
+             must name the sweep kernel), once verbose with stdout captured
+             (the table's rows counted), and a checkpoint: `save_state` at
+             iteration 40, `load_state`, `run` to the end, equal bit for bit
+             to the uninterrupted run;
+  serve      the first 512 instances of the batch through `solve_pool`,
+             `solve_pool_resident` (256 slots, chunks of 40) and a lockstep
+             `solve_batch`, float64 to 1e-7 with the hybrid search: solved,
+             chunks, occupancy, seconds and instances a second of each;
+             every instance against the lockstep result (status equal on
+             >= 99 %, objectives within 1e-6 where both converged,
+             iteration differences reported); K2, K3, K4 launched;
   campaign   the JAX package's 100-instance campaign of each of the six
              further models (`experiments/params`, as
              `experiments/run_benchmarks.py` solves them: `solve_batch`,
@@ -80,14 +99,20 @@ only. Phases, each printing one JSON line:
              seconds, launches, objectives matching the JAX results file to
              1e-4, seed 1 beside its row there, the golden lane beside its
              anchor; acrobot's batch once more with the hybrid search (K3 /
-             K4 inside a contact solve) and 20 float32 iterations (the bk
-             instantiation in float); fails on non-finite iterates, fewer
-             than 95 solved, or a path's kernel not launched;
+             K4 inside a contact solve) and for 20 float32 iterations (the
+             bk instantiation in float); fails on non-finite iterates, fewer
+             than 95 solved, or a path's kernel not launched. The batches
+             are solved in two further processes on the same card (pushing's
+             and acrobot's hybrid one; the other five), while this one runs
+             acrobot's float32 smoke, `mixed_rescue`, `residue` and the four
+             paths after them; the campaign's lines come after those paths.
+             The seconds of all of these are taken with three processes
+             running;
   turns      with --turns: the flat pure-f64 solve and the mixed solve in
              turns on the same batch (pure, mixed, mixed, pure);
   solve_hybrid_f32  30 iterations of the same in float32;
   solve_f64  the pure backtracking path (graph-replayed plain rollout,
-             sweep kernel) at 32 lanes, same gates;
+             sweep kernel) at 16 lanes, same gates;
   backtrack_cuda  20 iterations of pure backtracking with the forward-trial
              kernel as the rollout;
   phases     a timed split of a few mid-solve iterations into the solver's
@@ -95,7 +120,17 @@ only. Phases, each printing one JSON line:
   parent_and_change  with --parent DIR (a checkout of the parent commit):
              K3 built from that checkout's source under another stem and
              K3 of this tree in turns (parent, change, change, parent): K3's
-             time in both types and the hybrid solve with each.
+             time in both types and the hybrid solve with each; and right
+             after the kernel checks (`sweep_parent_and_change`, also with
+             --kernels-only) K1 / K2 of that checkout's `backward_sweep.cu`
+             against this tree's on the main shapes, in turns;
+  costate_orders  with --costate-orders, after the build and instead of
+             the rest: pushing's rows that end with a failed line search in
+             the campaign's batch in the associative costate order
+             (ORDER_ROWS), solved as a batch of their own in that order an
+             iteration at a time, and from the state where any failed one
+             more iteration with the kernel and the plain sweep, in both
+             orders, on the card and on the CPU.
 
 Any failed assertion or exception ends the run with a non-zero exit code and
 without the last line. The last three lines are the kernels' JSON object
@@ -105,9 +140,16 @@ power limit, and the result object.
 """
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
+import io
+import importlib
 import json
 import math
+import multiprocessing
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -116,6 +158,8 @@ from pathlib import Path
 
 import torch
 
+from ipddp2tpu_torch import (Bound, Constraint, Dynamics, Objective, Solver,
+                             solve_pool)
 from ipddp2tpu_torch import (Options, Problem, solve_batch, solve_chunked,
                              solve_mixed_chunked)
 from ipddp2tpu_torch import chunked
@@ -144,9 +188,12 @@ from ipddp2tpu_torch.ops.forward_cuda import (forward_metrics_cuda,
                                               metrics_geometry)
 from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_LANES, SECTIONS,
                                                crafted_inputs)
-from ipddp2tpu_torch.problem import Bounds
+from ipddp2tpu_torch.problem import Bounds, batch_bounds
+from ipddp2tpu_torch.serve import solve_pool_resident
+from ipddp2tpu_torch.utils import load_state, profiling, save_state
 from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
-                                   iteration, resolve_options)
+                                   iteration, resolve_options, run,
+                                   select_state)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): device
 # memory rate, and the vector (non-tensor-core) rates the sweep can use.
@@ -320,13 +367,20 @@ def borderline(args, dims, rtol):
     return lo != hi
 
 
-def check_kernel(name, args, dims, rtol, time_reps, need_both=True):
-    """Kernel against plain on the same inputs; returns the measured fields."""
+def check_kernel(name, args, dims, rtol, time_reps, need_both=True,
+                 every_lane=False):
+    """Kernel against plain on the same inputs; returns the measured fields.
+    The flags are held on the lanes whose plain residual is not within 10x
+    of the gate, or with `every_lane` on every lane."""
     dtype = args[18].dtype
     out_k = backward_sweep_cuda(*args, **dims, rtol=rtol)
     torch.cuda.synchronize()
     out_p = sweep_plain(*args, **dims, rtol=rtol)
     (gk, dLk, fk, sk), (gp, dLp, fp, sp) = out_k, out_p
+    if every_lane:
+        differ = [int((fk != fp).sum()), int((sk != sp).sum())]
+        assert differ == [0, 0], \
+            f"{name}: fail / singular flags differ on {differ} lanes"
     edge = borderline(args, dims, rtol)
     firm = ~edge
     assert bool((fk == fp)[firm].all()), f"{name}: fail flags differ"
@@ -473,7 +527,7 @@ TRIAL_NAMES = ("x", "u", "phi", "zl", "zu", "il", "iu", "c_raw")
 # float64 batches, a starting value and not one tuned on this card
 SPECULATIVE = 8
 # lanes of the pure backtracking path, which is driven at a smaller size
-SMALL_BATCH = 32
+SMALL_BATCH = 16
 
 
 def boundary_edge(trial, args, tol):
@@ -700,6 +754,10 @@ def check_forward(name, args, K, dtype, time_reps, need_both_flags,
 
 # the K and batch sizes at which K3 is held against its plain version
 METRICS_KS = (1, 3, 8, 13, 40)
+# lanes of the K3 grid (`metrics_grid`): its full batch, and that less 3 so
+# that the last block is not filled (the main shapes' check, at B lanes and
+# K = 8, is the `kernels` line's)
+GRID_BATCH = 256
 
 
 def check_metrics(name, args, K, dtype, need_both_flags=False):
@@ -1209,6 +1267,15 @@ CAMPAIGN = (("concar_quad", concar_quad, "concar_quad.txt"),
 CONTACT = ("acrobot", "cartpole", "pushing")
 RESULTS = Path(__file__).resolve().parent / "experiments" / "results"
 CAMPAIGN_SEEDS = 100
+# the campaign's solves, (model, search) pairs in two groups, each group
+# solved in a process of its own (`campaign_beside`) while the main process
+# runs other paths, for the script's time; the groups take about the same
+# time: pushing's batch (its slowest lanes take the 1000-iteration cap) and
+# acrobot's through the hybrid search, and the other five batches
+BESIDE = ((("pushing", "backtracking"), ("acrobot", "hybrid")),
+          (("acrobot", "backtracking"), ("cartpole_swingup", "backtracking"),
+           ("concar_quad", "backtracking"), ("quadrotor", "backtracking"),
+           ("cartpole", "backtracking")))
 # the least share of the 100 that a campaign solve must converge: the JAX
 # package solves 100 of 100 on each of them but pushing (98)
 CAMPAIGN_SOLVED = {"pushing": 0.95}
@@ -1317,18 +1384,172 @@ def campaign_fields(name, mod, results, sol, wall, counts):
                     golden_objective=golden[0],
                     on_golden=on_golden(name, g_obj, g_it, g_conv, golden)),
         launches={k: v for k, v in counts.items() if v},
-        status_counts=_status_counts(sol.status[:n]))
+        status_counts=_status_counts(sol.status[:n]),
+        # each unconverged instance: seed row, status, iterations, and
+        # whether the JAX campaign converged it
+        unsolved=[[i, int(sol.status[i]), int(iters[i]), bool(r_conv[i])]
+                  for i in torch.nonzero(~conv)[:, 0].tolist()])
 
 
-def campaign_gates(name, fields, sol, counts, names):
+def campaign_kernels(name, search):
+    """The kernels a campaign solve must launch: the sweep (bk on the
+    contact models), and K3 / K4 with the hybrid search."""
+    sweep = ("backward_sweep_bk_f64" if name in CONTACT
+             else "backward_sweep_f64")
+    forward = (("forward_metrics_f64", "forward_trial_f64")
+               if search == "hybrid" else ())
+    return (sweep,) + forward
+
+
+def campaign_solve(name, search, device):
+    """One model's campaign batch solved as `experiments/run_benchmarks.py`
+    solves it (f64, tolerance 1e-7, backtracking) or with the hybrid
+    search. Returns (fields, finite, launch counts)."""
+    mod, results = next((m, r) for n, m, r in CAMPAIGN if n == name)
+    th, b, x, u = campaign_batch(name, mod, torch.float64, device)
+    hybrid = (dict(ls_speculative=SPECULATIVE, ls_spec_continue=True)
+              if search == "hybrid" else {})
+    sol, wall, counts = timed_solve(
+        mod.problem(), b, x, u, theta=th,
+        options=Options(optimality_tolerance=1e-7, **hybrid), device=device)
+    return (campaign_fields(name, mod, results, sol, wall, counts),
+            all_finite(sol), counts)
+
+
+def campaign_beside(jobs, device, conn):
+    """The second process's work: `campaign_solve` of each (name, search)
+    in `jobs` on `device`, the list of results, or the error, sent back
+    through `conn`."""
+    try:
+        conn.send(("ok", [campaign_solve(name, search, torch.device(device))
+                          for name, search in jobs]))
+    except BaseException as e:
+        conn.send(("error", f"{type(e).__name__}: {e}"))
+        raise
+    finally:
+        conn.close()
+
+
+def start_beside(jobs, device="cuda", target=None):
+    """Start `campaign_beside(jobs, device)` (or `target`, which takes the
+    same arguments) in a new process, spawned: this one holds a CUDA
+    context. It loads the libraries this process built."""
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=target or campaign_beside,
+                       args=(jobs, device, send))
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def finish_beside(beside, timeout=1000.0):
+    """The second process's results; raises on its error, on its end
+    without results, and after `timeout` seconds."""
+    proc, recv = beside
+    assert recv.poll(timeout), "campaign_beside: no result in time"
+    kind, out = recv.recv()
+    assert kind == "ok", f"campaign_beside: {out}"
+    proc.join(60)
+    assert proc.exitcode == 0, f"campaign_beside: exit {proc.exitcode}"
+    return out
+
+
+def stop_beside(beside):
+    """End the second process, whatever state it is in."""
+    proc, recv = beside
+    recv.close()
+    if proc.is_alive():
+        proc.terminate()
+    proc.join(10)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+
+
+def campaign_gates(name, fields, finite, counts, names):
     """What fails the run: non-finite iterates, fewer solved than
     CAMPAIGN_SOLVED (95 %), a kernel of the path never launched."""
-    assert all_finite(sol), f"campaign/{name}: non-finite iterates"
+    assert finite, f"campaign/{name}: non-finite iterates"
     least = CAMPAIGN_SOLVED.get(name, 0.95) * CAMPAIGN_SEEDS
     assert fields["solved"] >= least, \
         f"campaign/{name}: {fields['solved']} solved < {least}"
     for k in names:
         assert counts[k] > 0, f"campaign/{name} missed the kernel {k}"
+
+
+# pushing's campaign rows (0 = seed 1) that end with a failed line search
+# (status 7) in the campaign's batch of 101 in the associative costate
+# order on an H100; with rows 2 and 87 at the iteration cap that leaves 94
+# of the 100 solved, below the campaign's gate of 95, where the sequential
+# order solves 97. Solved as a batch of their own they converge.
+ORDER_ROWS = (7, 55, 64, 88)
+
+
+@contextlib.contextmanager
+def costate_order(mode):
+    """The solver's costate scan in `mode` ("seq" or "assoc") while the
+    block runs: the script patches the name that `solve._body` calls."""
+    module = importlib.import_module("ipddp2tpu_torch.solve")
+    scan = module.costate_scan
+    module.costate_scan = lambda deriv, phi: scan(deriv, phi, mode=mode)
+    try:
+        yield
+    finally:
+        module.costate_scan = scan
+
+
+def costate_orders(device):
+    """--costate-orders: pushing's rows ORDER_ROWS as one batch in the
+    associative order, an iteration at a time, until every lane has
+    converged or stopped; the state from which each lane's failing
+    iteration started is kept. From those states one more iteration: with
+    the sweep kernel and with the plain sweep, in both orders, on the card,
+    and with the plain sweep on the CPU. Returns the phase's fields (each
+    lane's status, iterations and objective; the next status of each failed
+    lane under each variant)."""
+    rows = list(ORDER_ROWS)
+    th, b, x, u = pushing.from_params(
+        convert.params_rows(pushing.PARAMS, rows), torch.float64, device)
+    prob = pushing.problem()
+    opts = Options(optimality_tolerance=1e-7)
+    plain = Options(optimality_tolerance=1e-7, backward_kernel="torch")
+    bb = batch_bounds(b, len(rows))
+    s = initialize(prob, th, bb, x, u, opts, device=device)
+    before = s
+    t0 = time.perf_counter()
+    with costate_order("assoc"):
+        while True:
+            live = (s.status == 0) & ~s.converged & (s.k < opts.max_iterations)
+            if not bool(live.any()):
+                break
+            new = iteration(prob, bb, s, th, opts, device=device)
+            failing = live & (new.status != 0)
+            before = select_state(failing, s, before)
+            s = select_state(live, new, s)
+    wall = time.perf_counter() - t0
+    failed = torch.nonzero(s.status == 7)[:, 0].tolist()
+    nexts = {}
+    cpu = torch.device("cpu")
+    for label, o, mode, dev in (
+            ("kernel_assoc", opts, "assoc", device),
+            ("plain_assoc", plain, "assoc", device),
+            ("kernel_seq", opts, "seq", device),
+            ("plain_seq", plain, "seq", device),
+            ("plain_assoc_cpu", plain, "assoc", cpu),
+            ("plain_seq_cpu", plain, "seq", cpu)):
+        if not failed:
+            break
+        with costate_order(mode):
+            n = iteration(prob, bb, before, th, o, device=dev)
+        nexts[label] = [int(n.status[i]) for i in failed]
+    return dict(
+        order="assoc", rows=rows, seconds=wall,
+        status=s.status.tolist(), iterations=s.k.tolist(),
+        converged=s.converged.tolist(), objective=s.objective.tolist(),
+        failed_rows=[rows[i] for i in failed],
+        failed_at=[int(before.k[i]) for i in failed],
+        next_status_from_the_failing_state=nexts)
 
 
 def mid_state(problem, theta, bounds, x1, u0, iters):
@@ -1524,6 +1745,245 @@ def parent_and_change(parent_dir, prob, forward_main, K, solve_args,
     return dict(max_abs_diff_parent_vs_change=same, turns=turns)
 
 
+# ---- the facade and the serving pools -----------------------------------
+SCRATCH = Path(__file__).resolve().parent / "_smoke_scratch"
+ROW = re.compile(r"^\s+\d+\s+[\d.e+-]+\s")
+SERVE_BATCH, SERVE_SLOTS, SERVE_CHUNK = 512, 256, 40
+SWEEP_EVENT = "backward_sweep"      # in the names of the sweep's kernels
+# iterations of the facade's solve that run inside `profiling.trace`: the
+# whole solve's trace holds every operator of 99 iterations (1.41 GB, and
+# 307 s for the phase on an NVIDIA H100 80GB HBM3 at 700 W); a few
+# iterations launch the sweep too
+TRACE_ITERATIONS = 2
+CHECKPOINT_AT = 40                  # the facade's checkpoint iteration
+
+
+def facade_concar(device):
+    """concar's seed-1 instance built through the reference-style facade
+    from per-stage (x, u) closures over the instance, at its published
+    widths (nx=4, nu=10, nc=4, T=100), float64, default options."""
+    th, f_lim, tau_lim, x1 = concar.seed1_instance(device=device)
+    nx, nu, nc, T = concar.NX, concar.NU, concar.NC, concar.T
+    dyn = Dynamics(lambda x, u: concar.dynamics(x, u, 0, None), nx, nu)
+    stage = Objective(lambda x, u: concar.stage_cost(x, u, 0, None), nx, nu)
+    term = Objective(lambda x, u: concar.terminal_cost(x, None), nx, 0)
+    con = Constraint(lambda x, u: concar.constraints(x, u, 0, th), nx, nu,
+                     num_constraint=nc)
+    slack = 2 * concar.NUM_OBSTACLES
+    bound = Bound([-f_lim, -tau_lim] + [0.0] * slack,
+                  [f_lim, tau_lim] + [math.inf] * slack)
+    solver = Solver([dyn] * T, [stage] * T + [term],
+                    [con] * T + [Constraint(nx, 0)], [bound] * T + [Bound(0)],
+                    options=Options(optimality_tolerance=1e-7),
+                    device=device)
+    return solver, x1, concar.initial_controls(device=device)
+
+
+def facade_gate(sol):
+    """tests/test_benchmarks.py:_check on the facade's single instance."""
+    it = int(sol.iterations)
+    g_it = concar.SEED1_GOLDEN_ITERATIONS
+    assert bool(sol.converged), f"facade: status {int(sol.status)}"
+    assert math.isclose(float(sol.objective), concar.SEED1_GOLDEN_OBJECTIVE,
+                        rel_tol=1e-6), float(sol.objective)
+    assert abs(it - g_it) <= max(3, int(0.1 * g_it) + 1), it
+
+
+def facade_phase(device):
+    """The facade's solve: plain (golden gate, K2 launched, the plain
+    rollout only), its first TRACE_ITERATIONS iterations inside
+    `profiling.trace` (the trace must name the sweep kernel), verbose with
+    stdout captured (the table's rows counted),
+    and as a checkpointed run: `save_state` at iteration CHECKPOINT_AT,
+    `load_state`,
+    `run` to the end, equal bit for bit to the uninterrupted run."""
+    solver, x1, u0 = facade_concar(device)
+    reset_counts()
+    sol = solver.solve(x1, u0)
+    counts = read_counts()
+    facade_gate(sol)
+    assert counts["backward_sweep_f64"] > 0, "the facade missed K2"
+    assert counts["forward_metrics_f64"] == counts["forward_trial_f64"] == 0
+    fields = dict(iterations=int(sol.iterations),
+                  objective=float(sol.objective),
+                  converged=bool(sol.converged), seconds=solver.wall_time,
+                  launches={k: v for k, v in counts.items() if v})
+
+    SCRATCH.mkdir(exist_ok=True)
+    trace_dir = SCRATCH / "facade_trace"
+    plain_options = solver.options
+    solver.options = dataclasses.replace(plain_options,
+                                         max_iterations=TRACE_ITERATIONS)
+    t0 = time.perf_counter()
+    with profiling.trace(str(trace_dir)) as prof:
+        solver.solve(x1, u0)
+    traced = time.perf_counter() - t0
+    solver.options = plain_options
+    events = [e for e in prof.key_averages() if SWEEP_EVENT in e.key]
+    text = (trace_dir / "trace.json").read_text()
+    device_us = sum(getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0))
+                    for e in events)
+    fields["trace"] = dict(
+        iterations=TRACE_ITERATIONS, seconds=traced, trace_bytes=len(text),
+        sweep_events=sorted({e.key for e in events}),
+        sweep_calls=sum(e.count for e in events),
+        sweep_device_ms=device_us / 1e3,
+        kernel_named_in_trace_file=SWEEP_EVENT in text)
+    assert events and SWEEP_EVENT in text, \
+        "the trace does not name the sweep kernel"
+
+    out = io.StringIO()
+    solver.options = dataclasses.replace(plain_options, verbose=True)
+    with contextlib.redirect_stdout(out):
+        sol_v = solver.solve(x1, u0)
+    solver.options = plain_options
+    lines = out.getvalue().splitlines()
+    rows = [line for line in lines if ROW.match(line)]
+    fields["verbose"] = dict(
+        rows=len(rows), lines=len(lines), seconds=solver.wall_time,
+        exit_message="Optimal solution found" in out.getvalue(),
+        same_result=bool(sol_v.objective == sol.objective
+                         and sol_v.iterations == sol.iterations))
+    assert len(rows) >= int(sol.iterations) // 10 and \
+        fields["verbose"]["exit_message"], "verbose: table or message missing"
+
+    problem, options = solver.problem, solver.options
+    bounds = Bounds(*(b.to(device) for b in solver.bounds))
+    s0 = initialize(problem, None, bounds, x1[None], u0[None], options,
+                    device=device)
+    whole = run(problem, bounds, s0, None, options, device=device)
+    part = run(problem, bounds, s0, None, options, k_limit=CHECKPOINT_AT,
+               device=device)
+    path = SCRATCH / "facade_k40.npz"
+    save_state(str(path), part)
+    back = load_state(str(path), device=device)
+    round_trip = all(a.dtype == b.dtype and torch.equal(a, b)
+                     for a, b in zip(back, part))
+    back = back._replace(status=torch.zeros_like(back.status))
+    resumed = run(problem, bounds, back, None, options, device=device)
+    same = [f for f, a, b in zip(SolverState._fields, resumed, whole)
+            if not torch.equal(a, b)]
+    fields["checkpoint"] = dict(
+        at_iteration=int(part.k[0]), bytes=path.stat().st_size,
+        round_trip_bit_for_bit=round_trip,
+        resumed_iterations=int(resumed.k[0]),
+        fields_differing_from_uninterrupted=same)
+    shutil.rmtree(SCRATCH)
+    assert int(part.k[0]) == CHECKPOINT_AT and round_trip and not same, \
+        f"checkpoint: {fields['checkpoint']}"
+    return fields
+
+
+def pool_fields(sol, wall, counts, chunks=None, occupancy=None):
+    solved = int(sol.converged.sum())
+    iters = sol.iterations.to(torch.float64)
+    fields = dict(solved=solved, seconds=wall,
+                  instances_per_second=solved / wall,
+                  median_iterations=float(iters.median()),
+                  max_iterations=int(iters.max()),
+                  launches={k: v for k, v in counts.items() if v})
+    if chunks is not None:
+        fields.update(chunks=chunks, occupancy=occupancy)
+    return fields
+
+
+def against_lockstep(sol, lock):
+    """Per instance against the lockstep solve of the same batch: status,
+    objective where both converged, iterations."""
+    status, objective, iterations, converged = (
+        getattr(sol, f).to(lock.status.device)
+        for f in ("status", "objective", "iterations", "converged"))
+    both = converged & lock.converged
+    rel = ((objective - lock.objective).abs()
+           / lock.objective.abs().clamp(min=1e-300))[both]
+    d_it = (iterations - lock.iterations)
+    return dict(
+        same_status=int((status == lock.status).sum()),
+        both_converged=int(both.sum()),
+        max_rel_objective_diff=float(rel.max()) if rel.numel() else 0.0,
+        same_iterations=int((d_it == 0).sum()),
+        iteration_diff_max_abs=int(d_it.abs().max()),
+        iteration_diff_sum=int(d_it.sum()),
+        bitwise_equal_objectives=int((objective == lock.objective).sum()))
+
+
+def serve_phase(prob, bounds, x1, u0, theta, K, device=None):
+    """`solve_pool`, `solve_pool_resident` and a lockstep `solve_batch` of
+    the same first SERVE_BATCH instances of the main batch, in that order:
+    float64 to 1e-7 with the hybrid search, SERVE_SLOTS slots, chunks of
+    SERVE_CHUNK iterations. Each instance's status as the lockstep solve's
+    on >= 99 % of them, objectives within 1e-6 where both converged (the
+    caller's gate)."""
+    n, slots, chunk = SERVE_BATCH, SERVE_SLOTS, SERVE_CHUNK
+    args = (prob, Bounds(bounds.lower[:n], bounds.upper[:n]), x1[:n], u0[:n])
+    th = concar.Theta(theta.obstacles[:n])
+    opts = Options(optimality_tolerance=1e-7, max_iterations=1000,
+                   ls_speculative=K, ls_spec_continue=True)
+    runs = {}
+    for name, fn in (("solve_pool", solve_pool),
+                     ("solve_pool_resident", solve_pool_resident)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, theta=th, options=opts, slots=slots, chunk=chunk,
+                 device=device)
+        torch.cuda.synchronize()
+        runs[name] = (res, time.perf_counter() - t0, read_counts())
+    lock, wall, counts = timed_solve(*args, theta=th, options=opts,
+                                     device=device)
+    fields = dict(batch=n, slots=slots, chunk=chunk, K=K,
+                  lockstep=pool_fields(lock, wall, counts))
+    for name, (res, wall_p, counts_p) in runs.items():
+        f = pool_fields(res.solutions, wall_p, counts_p, res.chunks,
+                        res.occupancy)
+        f["against_lockstep"] = against_lockstep(res.solutions, lock)
+        fields[name] = f
+    return fields, {name: r[2] for name, r in runs.items()}
+
+
+def parent_sweep(parent_dir, dims, sweep_main, reps):
+    """K1 / K2 of the parent checkout's `backward_sweep.cu` and of this
+    tree's on the main shapes (`dims`: nx, nu, nc, refine), in turns
+    parent, change, change, parent (graph replay), with their largest
+    difference."""
+    nx, nu, nc = dims["nx"], dims["nu"], dims["nc"]
+    geo = launch_geometry(nx, nu, nc)
+    src = Path(parent_dir) / "ipddp2tpu_torch/ops/csrc/backward_sweep.cu"
+    path = build.finish(build.start(
+        f"backward_sweep_parent_nx{nx}_nu{nu}_nc{nc}", src,
+        defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}",
+                 f"IPB={geo.instances_per_block}"),
+        depends=tuple(sorted(src.parent.glob("*.cuh")))))
+    key = (nx, nu, nc, "ldl")
+    libs = {"parent": backward_cuda.bind(path, nx, nu, nc),
+            "change": backward_cuda._library(nx, nu, nc)}
+    rtol = Options().kkt_residual_rtol
+    diff = {}
+    for dtype, args in sweep_main.items():
+        outs = {}
+        for which, lib in libs.items():
+            backward_cuda._libs[key] = lib
+            g, dL, fail, sing = backward_sweep_cuda(*args, **dims, rtol=rtol)
+            outs[which] = list(g) + [dL, fail.to(dL.dtype),
+                                     sing.to(dL.dtype)]
+        torch.cuda.synchronize()
+        diff[str(dtype)] = max(
+            float((p_ - c_).abs().nan_to_num(posinf=0.0, neginf=0.0).max())
+            for p_, c_ in zip(outs["parent"], outs["change"]))
+    turns = []
+    for which in ("parent", "change", "change", "parent"):
+        backward_cuda._libs[key] = libs[which]
+        turns.append(dict(which=which, ms={
+            str(dtype): graph_ms(lambda: backward_sweep_cuda(
+                *args, **dims, rtol=rtol), reps)
+            for dtype, args in sweep_main.items()}))
+    backward_cuda._libs[key] = libs["change"]
+    return dict(max_abs_diff_parent_vs_change=diff, turns=turns)
+
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=2048)
@@ -1539,6 +1999,11 @@ def main():
                     help="time the pure-f64 hybrid solve and the mixed "
                          "solve in turns on the same batch: pure, mixed, "
                          "mixed, pure")
+    ap.add_argument("--costate-orders", action="store_true",
+                    help="after the build, only pushing's rows that fail "
+                         "in the campaign in the associative costate "
+                         "order, solved alone in that order and traced to "
+                         "any failure (no result line)")
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a checkout of the parent commit: time its "
                          "forward-metrics kernel against this tree's, in "
@@ -1578,7 +2043,8 @@ def main():
     dims_d = dict(nx=di.nx, nu=di.nu, nc=di.nc)
     more = {name: mod.problem() for name, mod, _ in CAMPAIGN}
     dims_of = lambda p: dict(nx=p.nx, nu=p.nu, nc=p.nc)
-    dims_ldl = [dims_of(more[n]) for n in ("quadrotor", "cartpole_swingup")]
+    dims_ldl = [dims_of(more[n]) for n in ("quadrotor", "cartpole_swingup",
+                                           "cartpole")]
     dims_bk = {n: dims_of(more[n]) for n in CONTACT}
     t0 = time.perf_counter()
     started_builds = (
@@ -1611,6 +2077,11 @@ def main():
          libraries=[p.name for p in libs],
          ptxas={name: build.ptxas_report(log) for name, log in logs.items()},
          sweep_geometry=geometry)
+    if a.costate_orders:
+        emit("costate_orders", **costate_orders(dev))
+        print("chip_smoke: --costate-orders, stopping after it",
+              file=sys.stderr)
+        return 10
 
     # ---- kernels ---------------------------------------------------------
     opts64 = Options(optimality_tolerance=1e-7,
@@ -1673,6 +2144,7 @@ def main():
 
     sfx = {torch.float32: "f32", torch.float64: "f64"}
     forward_main = {}           # the forward kernels' concar inputs, by type
+    sweep_main = {}             # the sweep's concar inputs, by type
     sweep_replaces = {
         torch.float32: "ipddp2tpu/ops/backward_pallas.py:308",
         torch.float64: "ipddp2tpu/ops/backward_pallas_df64.py:418"}
@@ -1683,6 +2155,7 @@ def main():
                        prob.nu)
         main_fields = check_kernel(kname, args, dict(dims_c, refine=refine),
                                    rtol, time_reps=10)
+        sweep_main[dtype] = args
         # batches that do not fill their last block
         ragged = {
             str(n): check_kernel(f"{kname}/B={n}", [x[:n] for x in args],
@@ -1758,9 +2231,10 @@ def main():
                  for k in METRICS_KS})
         # K3 alone at every K of METRICS_KS, on full and ragged batches of
         # all three models; its time by batch size
+        grid = min(GRID_BATCH, a.batch)
         emit("metrics_grid", name=kname, dtype=str(dtype),
              max_rel_err={label: metrics_grid(
-                 f"{kname}/{label}", lanes_of(fa, a.batch), dtype, a.batch)
+                 f"{kname}/{label}", lanes_of(fa, grid), dtype, grid)
                  for label, fa in (("concar", fargs),
                                    ("double_integrator", dargs),
                                    ("tiny_nc0", targs_f))})
@@ -1821,8 +2295,33 @@ def main():
                 f"backward_sweep_{sfx[dtype]}/{name}", args,
                 dict(dims_of(more[name]), refine=refine), rtol, 0,
                 need_both=False)["max_rel_err"]
+    # the LDL^T sweep at cartpole's m = 35 (a warp an instance): flags equal
+    # on every lane, timed; a quarter of the lanes regularized well into
+    # the right inertia, so that passing lanes are compared too
+    cartpole_ldl = {}
+    dims_cp = dict(dims_of(more["cartpole"]), refine=refine)
+    for dtype in (torch.float64, torch.float32):
+        th_m, _, s_m = mids["cartpole"]
+        args = perturb(sweep_inputs(more["cartpole"], cast_tree(th_m, dtype),
+                                    cast_tree(s_m, dtype)),
+                       more["cartpole"].nu)
+        lane = torch.arange(args[19].shape[0], device=dev)
+        args[19] = torch.where(lane % 4 == 1, args[19] + 1.0, args[19])
+        kname = f"backward_sweep_{sfx[dtype]}"
+        f = check_kernel(f"{kname}/cartpole_ldl", args, dims_cp, rtol, 10,
+                         every_lane=True)
+        f["geometry"] = launch_geometry(**dims_of(more["cartpole"]))._asdict()
+        f["geometry"]["smem_bytes"] = {
+            str(k): v for k, v in f["geometry"]["smem_bytes"].items()}
+        cartpole_ldl[sfx[dtype]] = f
+        row = by_name[kname]
+        row["cartpole_ldl"] = {k: f[k] for k in (
+            "ms", "ms_eager", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "max_rel_err")}
+        row["max_abs_err"] = max(row["max_abs_err"], f["max_abs_err"])
+        row["max_rel_err"] = max(row["max_rel_err"], f["max_rel_err"])
     emit("kernels_by_model", name="backward_sweep (ldl)",
-         max_rel_err=ldl_models)
+         max_rel_err=ldl_models, cartpole_ldl=cartpole_ldl)
     # K3 / K4 with each new model's device functions, float64, K = 8
     fwd_models = {}
     for name, mod, _ in CAMPAIGN:
@@ -1863,6 +2362,11 @@ def main():
             assert counts[kname] > 0, f"probe run missed {kname}"
             by_name[kname]["launches"] = counts[kname]
             by_name[kname]["launches_by_path"] = {"probes": counts[kname]}
+    # ---- K1 / K2 of the parent commit against this tree, in turns --------
+    if a.parent:
+        emit("sweep_parent_and_change", parent=a.parent, batch=a.batch,
+             T=prob.T, **parent_sweep(a.parent, dict(dims_c, refine=refine),
+                                      sweep_main, 10))
     if a.kernels_only:
         print(json.dumps({"kernels": kernels}), flush=True)
         print("chip_smoke: --kernels-only, stopping before the solves",
@@ -1947,69 +2451,164 @@ def main():
         f"only {fields['solved']}/{a.batch} converged"
     assert counts["backward_sweep_f32"] > 0
 
-    # ---- mixed_rescue: the rescue, the stall freeze, the adaptive K -------
-    nr = min(RESCUE_BATCH, a.batch)
-    sol, info, wall, counts, events, t0 = timed_mixed(
-        prob, Bounds(bounds.lower[:nr], bounds.upper[:nr]), x1[:nr],
-        u0[:nr], concar.Theta(theta.obstacles[:nr]), mix_opts, RESCUE_PATH)
-    record("mixed_rescue", counts, names32 + names64)
-    fields = mixed_fields(sol, info, wall, counts, events, t0)
-    emit("mixed_rescue", batch=nr, **fields)
-    left = torch.nonzero(~info["p2"]["converged"])[:, 0]
-    assert info["rescue"] is not None, "no lane left for the rescue"
-    assert torch.equal(info["rescue"]["indices"], left), \
-        "the rescue did not take exactly the lanes phase 2 left"
-    assert fields["rescue"]["solved"] >= 0.95 * left.numel()
-    assert all_finite(sol)
+    # ---- facade: concar through the reference-style Solver --------------
+    emit("facade", T=prob.T, **facade_phase(dev))
 
-    # ---- residue: the round-5 residue instances in native f64 -----------
-    fields, finite = residue_solves(prob, MIXED_ITERATIONS, dev)
-    emit("residue", **fields)
-    assert finite
+    # ---- serve: the two pools against lockstep on 512 instances ---------
+    fields, pool_counts = serve_phase(prob, bounds, x1, u0, theta, K)
+    emit("serve", **fields)
+    for name, counts in pool_counts.items():
+        record(f"serve/{name}", counts, names64)
+    record("serve/lockstep", {**dict.fromkeys(names64, 0),
+                              **fields["lockstep"]["launches"]}, names64)
+    for name in ("solve_pool", "solve_pool_resident"):
+        cmp = fields[name]["against_lockstep"]
+        assert cmp["same_status"] >= 0.99 * SERVE_BATCH, \
+            f"{name}: status as lockstep on {cmp['same_status']} only"
+        assert cmp["max_rel_objective_diff"] <= 1e-6, \
+            f"{name}: objective {cmp['max_rel_objective_diff']} from lockstep"
 
-    # ---- campaign: the six models' 100 reference instances --------------
+    # ---- campaign, and the paths this process runs beside it ------------
+    # Every model's campaign batch is solved in one of two further
+    # processes on the card (`campaign_beside`, the groups of BESIDE);
+    # meanwhile this one runs acrobot's float32 smoke, `mixed_rescue`,
+    # `residue` and the four older paths. The campaign's lines come after
+    # those, in CAMPAIGN's order.
     bk64, bk32 = "backward_sweep_bk_f64", "backward_sweep_bk_f32"
     campaign_launches = {}
-    opts_campaign = Options(optimality_tolerance=1e-7)  # run_benchmarks.py
-    for name, mod, results in CAMPAIGN:
-        th_c, b_c, x_c, u_c = campaign_batch(name, mod, torch.float64, dev)
-        sol, wall, counts = timed_solve(more[name], b_c, x_c, u_c,
-                                        theta=th_c, options=opts_campaign)
-        fields = campaign_fields(name, mod, results, sol, wall, counts)
-        emit("campaign", **fields)
-        path_names = (bk64,) if name in CONTACT else ("backward_sweep_f64",)
-        campaign_gates(name, fields, sol, counts, path_names)
-        record(f"campaign/{name}", counts, path_names)
-        for k, v in counts.items():
-            campaign_launches[k] = campaign_launches.get(k, 0) + v
-        if name == "acrobot":
-            # the same batch through the hybrid search: K3 / K4 inside a
-            # contact solve
-            sol, wall, counts = timed_solve(
-                more[name], b_c, x_c, u_c, theta=th_c,
-                options=Options(optimality_tolerance=1e-7,
-                                ls_speculative=K, ls_spec_continue=True))
-            fields = campaign_fields(name, mod, results, sol, wall, counts)
-            emit("campaign", search="hybrid", K=K, **fields)
-            hyb_names = (bk64, "forward_metrics_f64", "forward_trial_f64")
-            campaign_gates(name, fields, sol, counts, hyb_names)
-            record("campaign/acrobot_hybrid", counts, hyb_names)
-            for k, v in counts.items():
-                campaign_launches[k] = campaign_launches.get(k, 0) + v
-            # 20 iterations in float32: the bk instantiation in float
-            th32, b32c, x32c, u32c = campaign_batch(name, mod,
-                                                    torch.float32, dev)
-            sol, wall, counts = timed_solve(
-                more[name], b32c, x32c, u32c, theta=th32,
-                options=Options(optimality_tolerance=1e-7,
-                                max_iterations=20))
-            finite = all_finite(sol) and sol.x.dtype == torch.float32
-            emit("campaign_f32", model=name, iterations=20, seconds=wall,
-                 finite=finite, launches={k: v for k, v in counts.items()
-                                          if v})
-            assert finite
-            record("campaign_f32/acrobot", counts, (bk32,))
-            by_name[bk32]["launches"] = counts[bk32]
+    besides = []
+    try:
+        for jobs in BESIDE:
+            besides.append(start_beside(jobs))
+
+        # ---- campaign_f32: acrobot's batch, 20 float32 iterations --------
+        # the bk instantiation in float
+        th32c, b32c, x32c, u32c = campaign_batch("acrobot", acrobot,
+                                                 torch.float32, dev)
+        sol, wall, counts = timed_solve(
+            more["acrobot"], b32c, x32c, u32c, theta=th32c,
+            options=Options(optimality_tolerance=1e-7, max_iterations=20))
+        finite = all_finite(sol) and sol.x.dtype == torch.float32
+        emit("campaign_f32", model="acrobot", iterations=20, seconds=wall,
+             finite=finite, launches={k: v for k, v in counts.items()
+                                      if v})
+        assert finite
+        record("campaign_f32/acrobot", counts, (bk32,))
+        by_name[bk32]["launches"] = counts[bk32]
+
+        # ---- mixed_rescue: the rescue, the stall freeze, the adaptive K
+        nr = min(RESCUE_BATCH, a.batch)
+        sol, info, wall, counts, events, t0 = timed_mixed(
+            prob, Bounds(bounds.lower[:nr], bounds.upper[:nr]), x1[:nr],
+            u0[:nr], concar.Theta(theta.obstacles[:nr]), mix_opts,
+            RESCUE_PATH)
+        record("mixed_rescue", counts, names32 + names64)
+        fields = mixed_fields(sol, info, wall, counts, events, t0)
+        emit("mixed_rescue", batch=nr, **fields)
+        left = torch.nonzero(~info["p2"]["converged"])[:, 0]
+        assert info["rescue"] is not None, "no lane left for the rescue"
+        assert torch.equal(info["rescue"]["indices"], left), \
+            "the rescue did not take exactly the lanes phase 2 left"
+        assert fields["rescue"]["solved"] >= 0.95 * left.numel()
+        assert all_finite(sol)
+
+        # ---- residue: the round-5 residue instances in native f64 ------
+        fields, finite = residue_solves(prob, MIXED_ITERATIONS, dev)
+        emit("residue", **fields)
+        assert finite
+
+        # ---- solve_hybrid_f32 ------------------------------------------
+        th32, b32, x32, u32 = concar_batch(a.batch, torch.float32, dev, a.seed)
+        hyb32 = Options(optimality_tolerance=1e-7, max_iterations=30,
+                        backward_kernel="cuda", **hyb)
+        s0 = initialize(prob, th32, b32, x32, u32, hyb32)
+        p0 = s0.c_raw.abs().flatten(1).amax(dim=1)
+        sol32, wall32, counts = timed_solve(prob, b32, x32, u32, theta=th32,
+                                            options=hyb32)
+        record("solve_hybrid_f32", counts, names32)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (sol32.x, sol32.u, sol32.phi, sol32.zl,
+                               sol32.zu))
+        emit("solve_hybrid_f32", batch=a.batch, iterations=30, K=K,
+             seconds=wall32, finite=finite,
+             launches={k: v for k, v in counts.items() if v},
+             primal_inf_initial_median=float(p0.median()),
+             primal_inf_final_median=float(sol32.primal_inf.median()))
+        assert finite and sol32.x.dtype == torch.float32
+        assert float(sol32.primal_inf.median()) < float(p0.median())
+
+        # ---- solve_f64: pure backtracking, plain rollout, fewer lanes --
+        nb = min(SMALL_BATCH, a.batch)
+        th_s = concar.Theta(theta.obstacles[:nb])
+        b_s = Bounds(bounds.lower[:nb], bounds.upper[:nb])
+        sol_b, wall_b, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
+                                            theta=th_s, options=opts64)
+        record("solve_f64", counts, ("backward_sweep_f64",))
+        assert counts["forward_metrics_f64"] == 0 \
+            and counts["forward_trial_f64"] == 0
+        emit("solve_f64", T=prob.T, **solve_fields(sol_b, nb, wall_b),
+             sweep_launches=counts["backward_sweep_f64"])
+        golden_gates(sol_b, nb)
+
+        # the same path in float32, 30 iterations
+        opts32 = Options(optimality_tolerance=1e-7, max_iterations=30,
+                         backward_kernel="cuda")
+        sol_b32, wall_b32, counts = timed_solve(
+            prob, Bounds(*(x[:nb] for x in b32)), x32[:nb], u32[:nb],
+            theta=concar.Theta(th32.obstacles[:nb]), options=opts32)
+        record("solve_f32", counts, ("backward_sweep_f32",))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (sol_b32.x, sol_b32.u, sol_b32.phi, sol_b32.zl,
+                               sol_b32.zu))
+        emit("solve_f32", batch=nb, iterations=30, seconds=wall_b32,
+             finite=finite, sweep_launches=counts["backward_sweep_f32"],
+             primal_inf_initial_median=float(p0[:nb].median()),
+             primal_inf_final_median=float(sol_b32.primal_inf.median()))
+        assert finite and sol_b32.x.dtype == torch.float32
+        assert float(sol_b32.primal_inf.median()) < float(p0[:nb].median())
+
+        # ---- backtrack_cuda: K4 as the rollout of pure backtracking ----
+        bt = Options(optimality_tolerance=1e-7, max_iterations=20,
+                     backward_kernel="cuda", forward_kernel="cuda")
+        sol_k, wall_k, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
+                                            theta=th_s, options=bt)
+        record("backtrack_cuda", counts, ("backward_sweep_f64",
+                                          "forward_trial_f64"))
+        assert counts["forward_metrics_f64"] == 0
+        ref20 = solve_batch(prob, b_s, x1[:nb], u0[:nb], theta=th_s,
+                            options=Options(optimality_tolerance=1e-7,
+                                            max_iterations=20,
+                                            backward_kernel="cuda"))
+        same_steps = bool((ref20.iterations == sol_k.iterations).all())
+        drift = float((ref20.x - sol_k.x).abs().max())
+        emit("backtrack_cuda", batch=nb, iterations=20, seconds=wall_k,
+             trial_launches=counts["forward_trial_f64"],
+             same_iteration_counts_as_graph_rollout=same_steps,
+             max_abs_state_difference_to_graph_rollout=drift)
+        assert bool(torch.isfinite(sol_k.x).all())
+
+        # ---- the campaign's batches, solved beside the paths above -------
+        done = {}
+        for jobs, beside in zip(BESIDE, besides):
+            done.update(zip(jobs, finish_beside(beside)))
+        for name, _, _ in CAMPAIGN:
+            for search in ("backtracking", "hybrid"):
+                if (name, search) not in done:
+                    continue
+                fields, finite, counts = done[(name, search)]
+                if search == "hybrid":
+                    emit("campaign", search=search, K=K, **fields)
+                else:
+                    emit("campaign", **fields)
+                names = campaign_kernels(name, search)
+                campaign_gates(name, fields, finite, counts, names)
+                suffix = "_hybrid" if search == "hybrid" else ""
+                record(f"campaign/{name}{suffix}", counts, names)
+                for k, v in counts.items():
+                    campaign_launches[k] = campaign_launches.get(k, 0) + v
+    finally:
+        for beside in besides:
+            stop_beside(beside)
     by_name[bk64]["launches"] = campaign_launches[bk64]
     emit("campaign_launches", launches={k: v for k, v in
                                         campaign_launches.items() if v})
@@ -2018,75 +2617,6 @@ def main():
     if a.turns:
         emit("turns", batch=a.batch, **mixed_against_pure(
             (prob, bounds, x1, u0, theta), hyb64, mix_opts, mixed_kw))
-
-    # ---- solve_hybrid_f32 ------------------------------------------------
-    th32, b32, x32, u32 = concar_batch(a.batch, torch.float32, dev, a.seed)
-    hyb32 = Options(optimality_tolerance=1e-7, max_iterations=30,
-                    backward_kernel="cuda", **hyb)
-    s0 = initialize(prob, th32, b32, x32, u32, hyb32)
-    p0 = s0.c_raw.abs().flatten(1).amax(dim=1)
-    sol32, wall32, counts = timed_solve(prob, b32, x32, u32, theta=th32,
-                                        options=hyb32)
-    record("solve_hybrid_f32", counts, names32)
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in (sol32.x, sol32.u, sol32.phi, sol32.zl, sol32.zu))
-    emit("solve_hybrid_f32", batch=a.batch, iterations=30, K=K,
-         seconds=wall32, finite=finite,
-         launches={k: v for k, v in counts.items() if v},
-         primal_inf_initial_median=float(p0.median()),
-         primal_inf_final_median=float(sol32.primal_inf.median()))
-    assert finite and sol32.x.dtype == torch.float32
-    assert float(sol32.primal_inf.median()) < float(p0.median())
-
-    # ---- solve_f64: pure backtracking, plain rollout, at fewer lanes -----
-    nb = min(SMALL_BATCH, a.batch)
-    th_s = concar.Theta(theta.obstacles[:nb])
-    b_s = Bounds(bounds.lower[:nb], bounds.upper[:nb])
-    sol_b, wall_b, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
-                                        theta=th_s, options=opts64)
-    record("solve_f64", counts, ("backward_sweep_f64",))
-    assert counts["forward_metrics_f64"] == 0 \
-        and counts["forward_trial_f64"] == 0
-    emit("solve_f64", T=prob.T, **solve_fields(sol_b, nb, wall_b),
-         sweep_launches=counts["backward_sweep_f64"])
-    golden_gates(sol_b, nb)
-
-    # the same path in float32, 30 iterations
-    opts32 = Options(optimality_tolerance=1e-7, max_iterations=30,
-                     backward_kernel="cuda")
-    sol_b32, wall_b32, counts = timed_solve(
-        prob, Bounds(*(x[:nb] for x in b32)), x32[:nb], u32[:nb],
-        theta=concar.Theta(th32.obstacles[:nb]), options=opts32)
-    record("solve_f32", counts, ("backward_sweep_f32",))
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in (sol_b32.x, sol_b32.u, sol_b32.phi, sol_b32.zl,
-                           sol_b32.zu))
-    emit("solve_f32", batch=nb, iterations=30, seconds=wall_b32,
-         finite=finite, sweep_launches=counts["backward_sweep_f32"],
-         primal_inf_initial_median=float(p0[:nb].median()),
-         primal_inf_final_median=float(sol_b32.primal_inf.median()))
-    assert finite and sol_b32.x.dtype == torch.float32
-    assert float(sol_b32.primal_inf.median()) < float(p0[:nb].median())
-
-    # ---- backtrack_cuda: K4 as the rollout of pure backtracking ----------
-    bt = Options(optimality_tolerance=1e-7, max_iterations=20,
-                 backward_kernel="cuda", forward_kernel="cuda")
-    sol_k, wall_k, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
-                                        theta=th_s, options=bt)
-    record("backtrack_cuda", counts, ("backward_sweep_f64",
-                                      "forward_trial_f64"))
-    assert counts["forward_metrics_f64"] == 0
-    ref20 = solve_batch(prob, b_s, x1[:nb], u0[:nb], theta=th_s,
-                        options=Options(optimality_tolerance=1e-7,
-                                        max_iterations=20,
-                                        backward_kernel="cuda"))
-    same_steps = bool((ref20.iterations == sol_k.iterations).all())
-    drift = float((ref20.x - sol_k.x).abs().max())
-    emit("backtrack_cuda", batch=nb, iterations=20, seconds=wall_k,
-         trial_launches=counts["forward_trial_f64"],
-         same_iteration_counts_as_graph_rollout=same_steps,
-         max_abs_state_difference_to_graph_rollout=drift)
-    assert bool(torch.isfinite(sol_k.x).all())
 
     # ---- phases: split of mid-solve f64 iterations -----------------------
     split, differing = phase_split(prob, theta, bounds, mid, opts64, hyb64,

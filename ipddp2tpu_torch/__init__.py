@@ -7,10 +7,23 @@ the TPU kernels rewritten by hand as CUDA kernels. It imports `torch`, never
 
 So far the port covers the batched solve with the backtracking, the
 speculative and the hybrid line search, the chunked and mixed-precision
-solves on top of it, the eight benchmark models and the three inertia
-oracles (pivoted LDL^T, rook Bunch-Kaufman, eigh):
+solves on top of it, the reference-style facade, the serving pools, the
+eight benchmark models and the three inertia oracles (pivoted LDL^T, rook
+Bunch-Kaufman, eigh):
 
     Problem, Bounds, Options, solve, solve_batch      — functional core
+    Dynamics, Objective, Constraint, Bound,
+    Solver, get_trajectory, current_trajectory        — reference-style
+                                                        facade (reference
+                                                        exports:
+                                                        src/InteriorPointDDP.jl:29-45)
+    solve_pool, serve.solve_pool_resident             — serving pools:
+                                                        slots refilled from
+                                                        a queue
+    utils.printing, utils.checkpoint,
+    utils.profiling                                   — verbose table,
+                                                        save / load of a
+                                                        state, traces
     solve_chunked, run_chunked                        — chunked loop: limits
                                                         per lane, stall
                                                         freeze, compaction
@@ -43,12 +56,18 @@ from .solve import Solution, SolverState, solve
 from .batch import solve_batch
 from .chunked import run_chunked, solve_chunked
 from .mixed import promote_state, solve_mixed, solve_mixed_chunked
+from .solver import (Bound, Constraint, Dynamics, Objective, Solver,
+                     current_trajectory, get_trajectory)
+from .serve import solve_pool
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Options", "Problem", "Bounds", "uniform_bounds", "unbounded",
     "Solution", "SolverState", "solve", "solve_batch",
+    "Dynamics", "Objective", "Constraint", "Bound", "Solver",
+    "get_trajectory", "current_trajectory",
     "solve_chunked", "run_chunked",
     "solve_mixed", "solve_mixed_chunked", "promote_state",
+    "solve_pool",
 ]

@@ -95,21 +95,113 @@ def _mv(A: Tensor, v: Tensor) -> Tensor:
     return (A.transpose(-1, -2) @ v[..., None])[..., 0]
 
 
-def costate_scan(deriv: DerivativeBundle, phi: Tensor) -> Tensor:
-    """Costate refresh lam_t = r_x + fx' lam_{t+1} (reference:
-    src/backward_pass.jl:183,189), evaluated BEFORE the backward sweep so
-    the dynamics Hessians can be pre-contracted outside the sequential
-    sweep. Sequential ("seq") order: a reverse host loop of batched
-    [nx,nx] x [nx] products. Returns [B, T+1, nx]."""
-    r_x = deriv.lx + torch.einsum("btcx,btc->btx", deriv.cx, phi)
-    T = r_x.shape[1]
-    lam = deriv.lTx
+def _costate_seq(fx: Tensor, r_x: Tensor, lam_T: Tensor) -> Tensor:
+    """Reverse host loop lam_t = r_t + fx_t' lam_{t+1}: [B, T+1, nx]."""
+    lam = lam_T
     out = [lam]
-    for t in range(T - 1, -1, -1):
-        lam = r_x[:, t] + _mv(deriv.fx[:, t], lam)
+    for t in range(r_x.shape[1] - 1, -1, -1):
+        lam = r_x[:, t] + _mv(fx[:, t], lam)
         out.append(lam)
     out.reverse()
     return torch.stack(out, dim=1)
+
+
+def _affine_comb(a, b):
+    """The JAX package's `comb`: `a` the lower scan index (terminal side,
+    the inner map), `b` the outer one; (M, v) composes as v -> M v + c."""
+    Ma, va = a
+    Mb, vb = b
+    return Mb @ Ma, (Mb @ va[..., None])[..., 0] + vb
+
+
+def _interleave(even: Tensor, odd: Tensor) -> Tensor:
+    """even[0], odd[0], even[1], odd[1], ... along dim 1 (len(even) is
+    len(odd) or one more)."""
+    out = even.new_empty((even.shape[0], even.shape[1] + odd.shape[1])
+                         + even.shape[2:])
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _associative_scan(elems):
+    """Inclusive scan of `_affine_comb` along dim 1 of the pair `elems`,
+    by the recursion `jax.lax.associative_scan` runs
+    (jax/_src/lax/control_flow/loops.py): combine the pairs [0:-1:2] with
+    [1::2], scan the reduced sequence, combine its results but the last
+    with elems[2::2] (all of them when the length is odd), put elems[0] in
+    front and interleave. Every level is one batched product over
+    [B, ., nx, nx], so the pairs are associated exactly as there."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = _affine_comb(tuple(e[:, 0:-1:2] for e in elems),
+                           tuple(e[:, 1::2] for e in elems))
+    odd = _associative_scan(reduced)
+    if n % 2 == 0:
+        even = _affine_comb(tuple(e[:, :-1] for e in odd),
+                            tuple(e[:, 2::2] for e in elems))
+    else:
+        even = _affine_comb(odd, tuple(e[:, 2::2] for e in elems))
+    even = tuple(torch.cat([e[:, :1], r], dim=1)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o) for e, o in zip(even, odd))
+
+
+COSTATE_MODES = ("auto", "seq", "assoc")
+
+
+def costate_mode(mode: str, device=None) -> str:
+    """The order "auto" resolves to on `device`. The JAX package takes
+    "seq" on its accelerator (a TPU) and "assoc" on the CPU
+    (ipddp2tpu/backward.py:138-139). The port does the same with its
+    accelerator: "seq" on a GPU, "assoc" on the CPU, where both packages
+    then walk the same iterate path.
+
+    On the GPU the associative order is not the default because of
+    pushing's 100-instance campaign (float64, tolerance 1e-7): in that
+    order on an NVIDIA H100 80GB HBM3 (700 W) four instances of its batch
+    end with a failed line search (94 of 100 solved; the campaign's gate is
+    95), in the sequential one one does (97). From the state where each of
+    the four fails, the next step fails again with the plain sweep, with
+    the kernel, in either order, and on the CPU, and the four solved as a
+    batch of their own converge: the card's rounding picks the path, not a
+    fault of one component (PERF.md, ROADMAP.md)."""
+    if mode not in COSTATE_MODES:
+        raise ValueError(f"costate_scan: mode {mode!r} not in "
+                         f"{COSTATE_MODES}")
+    if mode != "auto":
+        return mode
+    on_gpu = device is not None and torch.device(device).type == "cuda"
+    return "seq" if on_gpu else "assoc"
+
+
+def costate_scan(deriv: DerivativeBundle, phi: Tensor,
+                 mode: str = "auto") -> Tensor:
+    """Costate refresh lam_t = r_x + fx' lam_{t+1} (reference:
+    src/backward_pass.jl:183,189), evaluated BEFORE the backward sweep so
+    the dynamics Hessians can be pre-contracted outside the sequential
+    sweep. Returns [B, T+1, nx].
+
+    Two evaluation orders, as in the JAX package's `costate_scan`, with
+    identical math up to reassociation (which moves iterate paths, and so
+    iteration counts):
+      * "seq": a reverse host loop of batched [nx,nx] x [nx] products;
+      * "assoc": the affine associative scan of the JAX package, composing
+        (fx_t', r_t) from the terminal side in O(log T) levels of batched
+        [nx,nx] products (plain `torch.matmul`: the JAX package runs it
+        outside any kernel too).
+    "auto" is "seq" on a GPU and "assoc" on the CPU (`costate_mode`)."""
+    mode = costate_mode(mode, deriv.fx.device)
+    r_x = deriv.lx + torch.einsum("btcx,btc->btx", deriv.cx, phi)
+    lam_T = deriv.lTx
+    if mode == "seq":
+        return _costate_seq(deriv.fx, r_x, lam_T)
+    Ms = torch.flip(deriv.fx.transpose(-1, -2), dims=(1,))
+    vs = torch.flip(r_x, dims=(1,))
+    Mc, vc = _associative_scan((Ms, vs))
+    lam = torch.flip((Mc @ lam_T[:, None, :, None])[..., 0] + vc, dims=(1,))
+    return torch.cat([lam, lam_T[:, None]], dim=1)
 
 
 def stage_solve_method(options: Options) -> str:

@@ -18,9 +18,13 @@ instance (G the smallest power of two >= m = nu + nc, at most 32), lane i
 holding row i of the KKT system, so that pivot search, elimination,
 substitution and assembly each take m short steps on every lane instead of
 m*m on one thread, and the stage inputs arrive in shared memory by
-asynchronous copies one stage ahead; see the source's header.
+asynchronous copies one stage ahead; see the source's header. For 32 < m
+<= 64 (cartpole's m = 35 with `inertia_method="ldl"`) the same sweep runs
+with a warp an instance, two rows a lane and the working matrix in shared
+memory (`csrc/backward_sweep_wide.cuh`, chosen by the size at build time).
 `launch_geometry` computes G, the instances per block and the block's shared
-memory here in Python, and refuses m > 32 and blocks above the card's 227 KB.
+memory here in Python, and refuses m > 64 and blocks above the card's
+227 KB.
 
 The stage solve is a compile-time choice of the same source. The LDL^T
 instantiation above serves `inertia_method="ldl"` (and "auto" where it
@@ -28,7 +32,7 @@ resolves to it). The Bunch-Kaufman instantiation (`-DSWEEP_BK=1`,
 `csrc/backward_sweep_bk.cuh`) serves `inertia_method="bk"`, the contact
 models' oracle: rook-pivoted Bunch-Kaufman with the reference's inertia
 count and plain substitution, one warp an instance and its KKT matrix in
-shared memory, so m = nu + nc up to `MAX_KKT_BK`; its plain version is
+shared memory, so m = nu + nc up to `MAX_KKT_WARP`; its plain version is
 `sweep_plain(..., inertia="bk")`. `launch_geometry(..., inertia=...)` and
 the launch counts are per instantiation. The eigh oracle has no kernel.
 
@@ -67,11 +71,12 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 INERTIA = ("ldl", "bk")        # the stage solves with a kernel
 _libs = {}
 _N_PTRS = 33
-# the largest group of lanes that can own an instance (one warp)
+# the largest group of lanes that can own an instance (one warp): the LDL^T
+# sweep of a larger m deals its rows over a warp's lanes
 MAX_KKT = 32
-# the Bunch-Kaufman instantiation deals the rows of a warp's instance over
-# its lanes; beyond this its shared memory would not fit a block anyway
-MAX_KKT_BK = 64
+# the largest m of both instantiations when a warp owns an instance and its
+# matrix lies in shared memory; beyond it a block would not fit anyway
+MAX_KKT_WARP = 64
 # the inputs that stay the same over the attempts of one backward pass
 _FIXED = ("fx", "fu", "lx", "lu", "lxx", "lux", "luu", "cx", "cu", "sec",
           "c_rel", "il", "iu", "phi", "zl", "zu", "lTx", "lTxx", "mu")
@@ -120,6 +125,10 @@ def _instance_values(nx: int, nu: int, nc: int, itemsize: int,
         # Vx, Vx', D, e, perm, 4 m multipliers
         rest = (m * (m + 1) + 4 * m * nk + 2 * nx * nx + 2 * nx + 3 * m
                 + 4 * m)
+    elif m > MAX_KKT:
+        # `LayW<T>`: K and the working copy [m][m+1], L [m][m+1], rhs and
+        # solution [m][nk], C, Vxx, Vx, Vx', pivot order
+        rest = (3 * m * (m + 1) + 2 * m * nk + 2 * nx * nx + 2 * nx + m)
     else:
         lanes = 1 << max(m - 1, 0).bit_length()
         rest = (m * (m + 1) + m * (lanes + 1) + 2 * m * nk + 2 * nx * nx
@@ -132,27 +141,23 @@ def launch_geometry(nx: int, nu: int, nc: int,
     """G, instances per block, threads and shared-memory bytes per block of
     the instantiation that serves `inertia` ("ldl" or "bk"). A block is 4
     warps where its float64 shared memory fits the card's 227 KB, else 2,
-    else 1. The LDL^T kernel: G the smallest power of two >= m = nu + nc;
-    raises ValueError for m above 32 (an instance must fit a warp). The
-    Bunch-Kaufman kernel: G = 32 (a warp an instance), m up to
-    `MAX_KKT_BK`. Raises ValueError too for dimensions whose smallest block
-    does not fit."""
+    else 1. The LDL^T kernel: G the smallest power of two >= m = nu + nc
+    up to m = 32, G = 32 (a warp an instance, two rows a lane) for 32 < m.
+    The Bunch-Kaufman kernel: G = 32. Both take m up to `MAX_KKT_WARP` and
+    raise ValueError above it, and for dimensions whose smallest block does
+    not fit."""
     _refuse_inertia(inertia)
     m = nu + nc
     if m < 1 or min(nx, nu) < 1 or nc < 0:
         raise ValueError(f"backward sweep: bad dimensions nx={nx}, nu={nu}, "
                          f"nc={nc}")
-    if inertia == "bk":
-        if m > MAX_KKT_BK:
-            raise ValueError(
-                f"backward sweep kernel (bk): KKT size nu + nc = {m} > "
-                f"{MAX_KKT_BK}; use backward_kernel=\"torch\"")
-        lanes = 32
-    elif m > MAX_KKT:
+    if m > MAX_KKT_WARP:
         raise ValueError(
-            f"backward sweep kernel: KKT size nu + nc = {m} > {MAX_KKT}: a "
-            "group of lanes of one warp owns an instance; use "
-            'backward_kernel="torch" for this problem')
+            f"backward sweep kernel ({inertia}): KKT size nu + nc = {m} > "
+            f"{MAX_KKT_WARP}: a warp owns an instance and its matrix lies in "
+            'shared memory; use backward_kernel="torch" for this problem')
+    if inertia == "bk" or m > MAX_KKT:
+        lanes = 32
     else:
         lanes = 1 << (m - 1).bit_length()
     per_instance = {dt: _instance_values(nx, nu, nc, size, inertia) * size
@@ -184,7 +189,8 @@ def start_build(nx: int, nu: int, nc: int, verbose: bool = False,
                                  f"IPB={geo.instances_per_block}", *bk,
                                  *defines),
                         depends=(_build.CSRC / "async_copy.cuh",
-                                 _build.CSRC / "backward_sweep_bk.cuh"),
+                                 _build.CSRC / "backward_sweep_bk.cuh",
+                                 _build.CSRC / "backward_sweep_wide.cuh"),
                         verbose=verbose)
 
 
@@ -196,9 +202,16 @@ def build(dims, verbose: bool = False):
 
 
 def _load(nx: int, nu: int, nc: int, defines=(), inertia: str = "ldl"):
-    geo = launch_geometry(nx, nu, nc, inertia)
     path = _build.finish(start_build(nx, nu, nc, defines=defines,
                                      inertia=inertia))
+    return bind(path, nx, nu, nc, inertia)
+
+
+def bind(path, nx: int, nu: int, nc: int, inertia: str = "ldl"):
+    """Open a built sweep library and check that it was built for these
+    dimensions and the geometry `launch_geometry` computes (also a library
+    built from another checkout's source, to time it against this one)."""
+    geo = launch_geometry(nx, nu, nc, inertia)
     lib = ctypes.CDLL(str(path))
     for name in _FUNCTION_OF.values():
         fn = getattr(lib, name)

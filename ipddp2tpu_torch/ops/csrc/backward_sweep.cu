@@ -31,10 +31,11 @@
 //    owns row i of the KKT matrix, of the working copy, of all nx + 1
 //    right-hand sides and of the solution, in registers with static column
 //    indices. Groups never talk to each other and warps never to other
-//    warps: the only barrier is `__syncwarp`. m > 32 does not fit a warp and
-//    is refused by the wrapper (largest m of the models that take this
-//    sweep: concar and concar_quad 14; the contact models, cartpole's m = 35
-//    among them, take the Bunch-Kaufman instantiation below).
+//    warps: the only barrier is `__syncwarp`. m > 32 does not fit a group:
+//    for 32 < m <= 64 the same sweep runs with a warp an instance and its
+//    working matrix in shared memory (backward_sweep_wide.cuh, chosen by
+//    the size; cartpole's m = 35 with inertia_method="ldl"); the wrapper
+//    refuses m > 64.
 //  * Pivot search: an arg-max over the live diagonal (each lane keeps its
 //    own diagonal entry in a register) by a xor butterfly of (|d|, index)
 //    pairs with the rule of the plain version: largest |d|, the lower index
@@ -112,8 +113,9 @@
 // -DSWEEP_BK=1 builds the other stage solve instead: rook Bunch-Kaufman with
 // the reference's inertia count and plain substitution, a warp an instance,
 // for the contact models (backward_sweep_bk.cuh, which says what it
-// replaces and what bounds it). Without it the preprocessed kernel is the
-// LDL^T one above, unchanged.
+// replaces and what bounds it). Without it, and for m <= 32, the
+// preprocessed kernel is the LDL^T one above, unchanged; for 32 < m <= 64
+// it is the LDL^T sweep of backward_sweep_wide.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -138,6 +140,11 @@ constexpr int pow2_at_least(int n) {
 // the Bunch-Kaufman instantiation: a warp owns an instance (backward_sweep_bk.cuh)
 constexpr int G = 32;
 static_assert(M >= 1, "the KKT size must be at least 1");
+#elif (NU + NC) > 32
+// the LDL^T sweep for 32 < m <= 64: a warp owns an instance
+// (backward_sweep_wide.cuh)
+#define SWEEP_WIDE 1
+constexpr int G = 32;
 #else
 constexpr int G = pow2_at_least(M);          // lanes that own one instance
 static_assert(M >= 1 && G <= 32, "the KKT size must be 1..32");
@@ -717,6 +724,10 @@ backward_sweep_kernel(const SweepArgs a, const int B, const int Tn,
 #include "backward_sweep_bk.cuh"
 #define SWEEP_KERNEL backward_sweep_bk_kernel
 #define SWEEP_INST(T) LayBK<T>::INST
+#elif SWEEP_WIDE
+#include "backward_sweep_wide.cuh"
+#define SWEEP_KERNEL backward_sweep_wide_kernel
+#define SWEEP_INST(T) LayW<T>::INST
 #else
 #define SWEEP_KERNEL backward_sweep_kernel
 #define SWEEP_INST(T) Lay<T>::INST

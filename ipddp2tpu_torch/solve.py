@@ -370,6 +370,11 @@ def run(problem: Problem, bounds: Bounds, state: SolverState, theta,
     status 8. Resuming `run` on the returned state with a higher limit
     continues the identical trajectory (the chunked loop's hook).
 
+    With `options.verbose`, a table row of lane 0 is printed after every
+    iteration whose counter is a multiple of `options.print_frequency`
+    (`utils.printing`); its values come with the loop's one host read per
+    iteration.
+
     `trace`, if given, is a list to which every iteration appends
     (stepped [B] bool, step_size [B], num_ls [B]): which lanes accepted a
     step in that iteration, at which step size and after how many counted
@@ -387,16 +392,28 @@ def run(problem: Problem, bounds: Bounds, state: SolverState, theta,
     else:
         k_limit = min(int(k_limit), options.max_iterations)
 
+    if options.verbose:
+        from .utils.printing import iteration_logger, row_values
+    stepped = None                  # the lanes the last iteration ran
     while True:
         active = ((state.k < k_limit) & (state.status == 0)
                   & ~state.converged)
-        if not bool(active.any()):            # host sync, once per iteration
+        if options.verbose and stepped is not None:
+            # lane 0's row of the last iteration rides on the loop's read
+            host = torch.cat([active.any().reshape(1).to(torch.float64),
+                              row_values(state, stepped)]).tolist()
+            iteration_logger(host[1:], options)
+            go = bool(host[0])
+        else:
+            go = bool(active.any())           # host sync, once per iteration
+        if not go:
             break
         new = _body(problem, bounds, theta, options, state)
         if trace is not None:
             trace.append((active & (new.k > state.k), new.step_size,
                           new.num_ls))
         state = select_state(active, new, state)
+        stepped = active
 
     hit_limit = (~state.converged & (state.status == 0)
                  & (state.k >= k_limit))

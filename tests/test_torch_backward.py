@@ -206,6 +206,23 @@ def test_costate_scan_matches_jax_seq():
                                atol=1e-15)
 
 
+@functools.cache
+def _jax_ladder(jp):
+    """The JAX ladder on the tiny inputs, compiled once for both reg_last
+    values (a runtime argument)."""
+    def one(x, u, phi, nom, reg_last):
+        deriv = jd.evaluate_derivatives(jp, None, x, u, phi)
+        lam = jb.costate_scan(deriv, phi, mode="seq")
+        second = deriv.cH_phi + jd.contract_dynamics_hessian(
+            jp, None, x, u, lam[1:])
+        res = jb.backward_pass(jp, deriv, nom, jnp.asarray(0.1), reg_last,
+                               J.Options(backward_kernel="xla"), lam=lam,
+                               second=second)
+        return deriv, second, res
+
+    return jax.jit(jax.vmap(one, in_axes=(0, 0, 0, 0, None)))
+
+
 @pytest.mark.parametrize("reg_last", [0.0, 0.3])
 def test_backward_pass_ladder_matches_jax(reg_last):
     """Indefinite stage cost: the ladder takes several bumps, and lanes need
@@ -221,18 +238,8 @@ def test_backward_pass_ladder_matches_jax(reg_last):
     nominal = tuple(jnp.asarray(inp[k])
                     for k in ("c", "il", "iu", "phi", "zl", "zu"))
 
-    def one(x, u, phi, nom):
-        deriv = jd.evaluate_derivatives(jp, None, x, u, phi)
-        lam = jb.costate_scan(deriv, phi, mode="seq")
-        second = deriv.cH_phi + jd.contract_dynamics_hessian(
-            jp, None, x, u, lam[1:])
-        res = jb.backward_pass(jp, deriv, nom, jnp.asarray(0.1),
-                               jnp.asarray(reg_last),
-                               J.Options(backward_kernel="xla"), lam=lam,
-                               second=second)
-        return deriv, second, res
-
-    deriv, second, ref = jax.jit(jax.vmap(one))(x, u, phi, nominal)
+    deriv, second, ref = _jax_ladder(jp)(x, u, phi, nominal,
+                                         jnp.asarray(reg_last))
     d = convert.deriv_from_numpy(deriv)
     n = tuple(torch.as_tensor(np.asarray(a)) for a in nominal)
     out = pb.backward_pass(
@@ -396,8 +403,8 @@ def test_launch_geometry(dims, lanes, per_block, f32, f64):
 
 def test_launch_geometry_refuses_what_does_not_fit():
     from ipddp2tpu_torch.ops.backward_cuda import launch_geometry
-    with pytest.raises(ValueError, match="nu \\+ nc = 33 > 32"):
-        launch_geometry(4, 21, 12)
+    with pytest.raises(ValueError, match="nu \\+ nc = 65 > 64"):
+        launch_geometry(4, 21, 44)
     with pytest.raises(ValueError, match="227 KB"):
         launch_geometry(60, 20, 12)
     # fewer warps a block before giving up

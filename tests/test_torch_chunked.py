@@ -5,8 +5,8 @@ rule.
 
 Tolerances: a chunked solve resumes `run` on the state it left, so against
 the port's own one-call solve it is bit for bit. Against the JAX package,
-iterates after 6 iterations agree to 1e-8 (the costate orders differ, see
-tests/test_torch_solve.py). The stall rule is exact host arithmetic."""
+iterates after 6 iterations agree to 1e-8 (as tests/test_torch_solve.py).
+The stall rule is exact host arithmetic."""
 
 import jax
 import numpy as np

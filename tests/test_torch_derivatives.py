@@ -84,8 +84,8 @@ def test_contraction_equals_full_hessian_contracted(concar_case):
 def test_tiny_problem_bundle_matches_jax(nc):
     jp, pp = tiny_problems(nc)()
     inp = tiny_inputs(0, 4, nc)
-    ref = jax.vmap(lambda a, b, c: jd.evaluate_derivatives(jp, None, a, b, c))(
-        *(jnp.asarray(inp[k]) for k in ("x", "u", "phi")))
+    ref = jax.jit(jax.vmap(lambda a, b, c: jd.evaluate_derivatives(
+        jp, None, a, b, c)))(*(jnp.asarray(inp[k]) for k in ("x", "u", "phi")))
     out = pd.evaluate_derivatives(
         pp, None, *(torch.as_tensor(inp[k]) for k in ("x", "u", "phi")))
     for field in DerivativeBundle._fields:

@@ -34,7 +34,9 @@ def test_port_files_are_found():
             "forward_cuda.py", "probe_chain.py", "build.py", "chunked.py",
             "autotune.py", "mixed.py", "chip_smoke.py", "bk.py", "ldlt.py",
             "concar_quad.py", "quadrotor.py", "cartpole_swingup.py",
-            "acrobot.py", "cartpole.py", "pushing.py"} <= names
+            "acrobot.py", "cartpole.py", "pushing.py", "solver.py",
+            "serve.py", "printing.py", "checkpoint.py",
+            "profiling.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -74,6 +76,9 @@ def test_every_kernel_has_its_source():
     from ipddp2tpu_torch.ops import backward_cuda
     assert "SWEEP_BK" in backward_cuda.SOURCE.read_text()
     assert (CSRC / "backward_sweep_bk.cuh").exists()
+    # the LDL^T sweep for 32 < m <= 64 is chosen by the size in that source
+    assert "backward_sweep_wide.cuh" in backward_cuda.SOURCE.read_text()
+    assert (CSRC / "backward_sweep_wide.cuh").exists()
     assert {"backward_sweep_bk_f32", "backward_sweep_bk_f64"} \
         <= set(backward_cuda.launch_counts)
 
@@ -126,3 +131,20 @@ def test_default_device_raises_without_a_gpu():
             entry(*args, options=Options(max_iterations=1))
     with pytest.raises(RuntimeError, match="CUDA"):
         initialize(args[0], None, *args[1:], Options())
+    from ipddp2tpu_torch import (Bound, Constraint, Dynamics, Objective,
+                                 Solver, solve_pool)
+    from ipddp2tpu_torch.serve import solve_pool_resident
+    from ipddp2tpu_torch.utils import load_state
+    for entry in (solve_pool, solve_pool_resident):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(*args, options=Options(max_iterations=1), slots=1)
+    f = lambda x, u: x + u
+    solver = Solver([Dynamics(f, 1, 1)] * 2,
+                    [Objective(lambda x, u: (u * u).sum(), 1, 1)] * 2
+                    + [Objective(lambda x, u: (x * x).sum(), 1, 0)],
+                    [Constraint(1, 1)] * 2 + [Constraint(1, 0)],
+                    [Bound(1)] * 2 + [Bound(0)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solver.solve(torch.ones(1), torch.zeros(2, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_state("no_such_file.npz")

@@ -5,6 +5,8 @@ Tolerances: the pivot permutation and the inertia counts are integers and
 must be equal; factors and solutions agree to rtol 1e-10 (same elimination
 order, other summation order inside the triangular solves)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,17 @@ from torch_port_helpers import tnp
 
 NU, NC, N = 5, 3, 12
 M = NU + NC
+
+# the JAX references, compiled once for the module's shape
+_j_factor = jax.jit(jax.vmap(jl.ldlt_factor_pivoted))
+_j_solve = jax.jit(jax.vmap(jl.ldlt_solve))
+
+
+@functools.partial(jax.jit, static_argnames="refine")
+def _j_refined(K, b, refine):
+    f = jax.vmap(jl.ldlt_factor_pivoted)(K)
+    return f, jax.vmap(lambda f, a, r: jl.ldlt_solve_refined(
+        f, a, r, refine_steps=refine, check_residual=True))(f, K, b)
 
 
 def kkt_batch(seed, definite=True):
@@ -40,7 +53,7 @@ def kkt_batch(seed, definite=True):
 @pytest.mark.parametrize("definite", [True, False])
 def test_factor_matches_jax(definite):
     K, _ = kkt_batch(0, definite)
-    ref = jax.vmap(jl.ldlt_factor_pivoted)(jnp.asarray(K))
+    ref = _j_factor(jnp.asarray(K))
     out = pl_.ldlt_factor_pivoted(torch.as_tensor(K))
     np.testing.assert_array_equal(tnp(out.perm), np.asarray(ref.perm))
     np.testing.assert_array_equal(tnp(out.n_pos), np.asarray(ref.n_pos))
@@ -69,10 +82,7 @@ def test_pivot_tie_takes_first_index():
 @pytest.mark.parametrize("refine", [0, 1, 2])
 def test_refined_solve_matches_jax(refine):
     K, b = kkt_batch(1)
-    jf = jax.vmap(jl.ldlt_factor_pivoted)(jnp.asarray(K))
-    rx, rok = jax.vmap(lambda f, a, r: jl.ldlt_solve_refined(
-        f, a, r, refine_steps=refine, check_residual=True))(
-            jf, jnp.asarray(K), jnp.asarray(b))
+    _, (rx, rok) = _j_refined(jnp.asarray(K), jnp.asarray(b), refine)
     pf = pl_.ldlt_factor_pivoted(torch.as_tensor(K))
     x, ok = pl_.ldlt_solve_refined(pf, torch.as_tensor(K), torch.as_tensor(b),
                                    refine_steps=refine, check_residual=True)
@@ -88,8 +98,7 @@ def test_plain_solve_vector_and_matrix_rhs():
     xm = pl_.ldlt_solve(pf, torch.as_tensor(b))
     xv = pl_.ldlt_solve(pf, torch.as_tensor(b[..., 0]))
     np.testing.assert_allclose(tnp(xv), tnp(xm)[..., 0], rtol=1e-13)
-    jf = jax.vmap(jl.ldlt_factor_pivoted)(jnp.asarray(K))
-    ref = jax.vmap(jl.ldlt_solve)(jf, jnp.asarray(b))
+    ref = _j_solve(_j_factor(jnp.asarray(K)), jnp.asarray(b))
     np.testing.assert_allclose(tnp(xm), np.asarray(ref), rtol=1e-10,
                                atol=1e-12)
 
@@ -102,10 +111,7 @@ def test_residual_gate_fires_on_singular_matrix():
     K, b = kkt_batch(3)
     K[:, NU, :] = 0.0
     K[:, :, NU] = 0.0
-    jf = jax.vmap(jl.ldlt_factor_pivoted)(jnp.asarray(K))
-    _, rok = jax.vmap(lambda f, a, r: jl.ldlt_solve_refined(
-        f, a, r, refine_steps=1, check_residual=True))(
-            jf, jnp.asarray(K), jnp.asarray(b))
+    jf, (_, rok) = _j_refined(jnp.asarray(K), jnp.asarray(b), 1)
     pf = pl_.ldlt_factor_pivoted(torch.as_tensor(K))
     _, ok = pl_.ldlt_solve_refined(pf, torch.as_tensor(K), torch.as_tensor(b),
                                    refine_steps=1, check_residual=True)

@@ -155,31 +155,11 @@ def test_rescue_host_final_is_not_ported():
                               rescue_host_final=True, device="cpu")
 
 
-@pytest.mark.slow
-def test_mixed_concar_seed1_twin(monkeypatch):
-    """The port's twin of tests/test_mixed.py::test_mixed_concar (full
-    horizon, default options, so backtracking; one instance), held to the
-    JAX package run in the port's costate order.
-
-    The JAX test's bounds (converged within rtol 1e-4 of the golden
-    objective, dual error < 1e-7, fewer than 130 iterations) hold for the
-    JAX package on the CPU, where its costate scan is associative; its f32
-    phase reaches the 3e-4 tolerance at iteration 92 with a dual error of
-    2.75e-4. In the sequential order — the JAX package's on the TPU, and the
-    port's only one — the f32 dual error stalls near 2e-3 on this instance
-    and phase 1 spends the whole iteration budget, in the JAX package as in
-    the port. So the port is held to the JAX package in that order: the
-    same status, convergence and iteration count for the lane, and the JAX
-    test's bounds whenever the JAX package converges."""
-    import sys
-    import ipddp2tpu.solve  # noqa: F401 (the module, not the function)
-    from ipddp2tpu.backward import costate_scan as j_costate_scan
+def _seed1_mixed_pair():
+    """tests/test_mixed.py::test_mixed_concar's solve (full horizon,
+    default options, so backtracking; one instance) in both packages."""
     from ipddp2tpu.models import concar as jm
     from ipddp2tpu_torch.models import concar as m
-    jsolve = sys.modules["ipddp2tpu.solve"]
-    monkeypatch.setattr(jsolve, "costate_scan",
-                        lambda d, p, mode="seq": j_costate_scan(d, p,
-                                                                mode="seq"))
     jtheta, jf, jtau, jx1 = jm.seed1_instance()
     ref = jax.jit(lambda: j_solve_mixed(
         jm.problem(), jm.bounds(jf, jtau), jx1, jm.initial_controls(),
@@ -191,12 +171,52 @@ def test_mixed_concar_seed1_twin(monkeypatch):
                         theta=m.Theta(theta.obstacles[None]),
                         options=P.Options(optimality_tolerance=1e-7),
                         device="cpu")
+    return ref, sol, m.SEED1_GOLDEN_OBJECTIVE
+
+
+@pytest.mark.slow
+def test_mixed_concar_seed1_twin(monkeypatch):
+    """The port's twin of tests/test_mixed.py::test_mixed_concar with both
+    packages held in the sequential costate order (the JAX package's order
+    on a TPU), by the same patch on each side.
+
+    In that order the f32 dual error stalls near 2e-3 on this instance and
+    phase 1 spends the whole iteration budget, in the JAX package as in the
+    port. So the port is held to the JAX package run: the same status,
+    convergence and iteration count for the lane (within 10 %), and the JAX
+    test's bounds whenever the JAX package converges."""
+    import sys
+    import ipddp2tpu.solve  # noqa: F401 (the module, not the function)
+    import ipddp2tpu_torch.solve  # noqa: F401
+    from ipddp2tpu.backward import costate_scan as j_costate_scan
+    from ipddp2tpu_torch.backward import costate_scan as p_costate_scan
+    monkeypatch.setattr(sys.modules["ipddp2tpu.solve"], "costate_scan",
+                        lambda d, p, mode="seq": j_costate_scan(d, p,
+                                                                mode="seq"))
+    monkeypatch.setattr(sys.modules["ipddp2tpu_torch.solve"], "costate_scan",
+                        lambda d, p, mode="seq": p_costate_scan(d, p,
+                                                                mode="seq"))
+    ref, sol, golden = _seed1_mixed_pair()
     assert int(sol.status[0]) == int(ref.status)
     assert bool(sol.converged[0]) == bool(ref.converged)
     it, ref_it = int(sol.iterations[0]), int(ref.iterations)
     assert abs(it - ref_it) <= max(3, int(0.1 * ref_it) + 1), (it, ref_it)
     if bool(ref.converged):
-        np.testing.assert_allclose(float(sol.objective[0]),
-                                   m.SEED1_GOLDEN_OBJECTIVE, rtol=1e-4)
+        np.testing.assert_allclose(float(sol.objective[0]), golden,
+                                   rtol=1e-4)
         assert float(sol.dual_inf[0]) < 1e-7
         assert it < 130, it
+
+
+@pytest.mark.slow
+def test_mixed_concar_seed1_default_order():
+    """The same solve with both packages in their default costate order
+    ("auto": associative off a TPU), held to the JAX test's own bounds:
+    converged, within rtol 1e-4 of the golden objective, dual error below
+    1e-7, fewer than 130 iterations in all."""
+    ref, sol, golden = _seed1_mixed_pair()
+    assert bool(ref.converged) and int(ref.iterations) < 130
+    assert bool(sol.converged[0]), int(sol.status[0])
+    np.testing.assert_allclose(float(sol.objective[0]), golden, rtol=1e-4)
+    assert float(sol.dual_inf[0]) < 1e-7
+    assert int(sol.iterations[0]) < 130, int(sol.iterations[0])

@@ -8,8 +8,7 @@ short-horizon acrobot solve through the bk path.
 
 Tolerances: values rtol 1e-12, the derivative bundle rtol 1e-10 (AD in
 other association orders), params and bounds bit for bit; the iterates
-after 5 iterations to 1e-8 (the costate in another order on the CPU, as
-tests/test_torch_solve.py). The slow golden solves (T = 100, eager CPU
+after 5 iterations to 1e-8 (as tests/test_torch_solve.py). The slow golden solves (T = 100, eager CPU
 torch) follow tests/test_benchmarks.py: acrobot and cartpole by `_check`
 (objective to 1e-6, iterations within max(3, 10 % + 1)); pushing converged
 with its objective within 10 % of the reference's (a nearby local optimum,

@@ -222,8 +222,9 @@ def test_routing_of_the_sweep():
 def test_bk_launch_geometry():
     """A warp an instance for acrobot (m = 15), pushing (17) and cartpole
     (35), four of them a block, their shared memory (the source's
-    `LayBK<T>`) within the card's 227 KB; the LDL^T kernel keeps refusing
-    cartpole's m = 35, also for a build."""
+    `LayBK<T>`) within the card's 227 KB. The LDL^T kernel takes cartpole's
+    m = 35 as a warp an instance too (the source's `LayW<T>`: two of them a
+    block in double); both refuse m = 65, also for a build."""
     geo = backward_cuda.launch_geometry
     for nx, nu, nc in ((4, 9, 6), (4, 11, 6), (4, 21, 14)):
         g = geo(nx, nu, nc, inertia="bk")
@@ -243,10 +244,17 @@ def test_bk_launch_geometry():
     # cartpole: 46,128 bytes an instance in double (35 x 36 of them A)
     assert geo(4, 21, 14, inertia="bk").smem_bytes[torch.float64] \
         == 4 * 46128
-    with pytest.raises(ValueError, match="32"):
-        geo(4, 21, 14)
-    with pytest.raises(ValueError, match="32"):
-        backward_cuda.start_build(4, 21, 14)
+    # the LDL^T sweep at cartpole's m = 35: K, its working copy and L
+    # [35][36] each, rhs and X [35][5], C, Vxx, Vx, Vx', the pivot order
+    g = geo(4, 21, 14)
+    assert (g.lanes, g.instances_per_block, g.threads) == (32, 2, 64)
+    assert g.smem_bytes == {torch.float32: 2 * 31072,
+                            torch.float64: 2 * 61808}
+    for inertia in ("ldl", "bk"):
+        with pytest.raises(ValueError, match="65 > 64"):
+            geo(4, 21, 44, inertia=inertia)
+        with pytest.raises(ValueError, match="65 > 64"):
+            backward_cuda.start_build(4, 21, 44, inertia=inertia)
     with pytest.raises(ValueError, match="no kernel"):
         geo(4, 9, 6, inertia="eigh")
     assert geo(4, 9, 6).lanes == 16            # acrobot's ldl group

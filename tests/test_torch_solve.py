@@ -2,11 +2,13 @@
 iterate parity after a few iterations, the golden anchors, frozen lanes.
 
 Tolerances: `initialize` is the same arithmetic (rtol 1e-12). Iterates after
-5 iterations agree to 1e-8: JAX on the CPU takes the associative costate
-order and the port the sequential one, so the two trajectories differ by
-reassociation, amplified over the iterations. Whole solves are held to the
+5 iterations agree to 1e-8 (both packages take the associative costate
+order on the CPU; tests/test_torch_costate.py holds the same comparison to
+1e-12). Whole solves are held to the
 golden rule of tests/test_benchmarks.py (`_check`), never to equal iteration
 counts against JAX."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,13 +34,21 @@ B = 3
 OPTS = dict(optimality_tolerance=1e-7)
 
 
+@functools.cache
+def _j_init():
+    """The JAX package's `initialize` on short concar, compiled once for the
+    module (every caller has B lanes)."""
+    jp = short_concar()[0]
+    return jax.jit(jax.vmap(lambda b, x, u, th: j_initialize(
+        jp, th, b, x, u, J.Options(**OPTS))))
+
+
 @pytest.fixture(scope="module")
 def init_pair():
     jp, pp = short_concar()
     inst = concar_instances(11, B)
     bounds, x1, u0, theta = jax_concar_args(inst)
-    ref = jax.vmap(lambda b, x, u, th: j_initialize(
-        jp, th, b, x, u, J.Options(**OPTS)))(bounds, x1, u0, theta)
+    ref = _j_init()(bounds, x1, u0, theta)
     pb, px1, pu0, pth = torch_concar_args(inst)
     out = initialize(pp, pth, pb, px1, pu0, P.Options(**OPTS), device="cpu")
     return ref, out
@@ -74,8 +84,7 @@ def test_upper_only_bound_is_projected_like_jax():
     inst["lower"][:, :, 1] = -np.inf            # steer: upper bound only
     inst["u0"][:, :, 1] = 10.0                  # guess above the bound
     bounds, x1, u0, theta = jax_concar_args(inst)
-    ref = jax.vmap(lambda b, x, u, th: j_initialize(
-        jp, th, b, x, u, J.Options(**OPTS)))(bounds, x1, u0, theta)
+    ref = _j_init()(bounds, x1, u0, theta)
     pb, px1, pu0, pth = torch_concar_args(inst)
     out = initialize(pp, pth, pb, px1, pu0, P.Options(**OPTS), device="cpu")
     np.testing.assert_allclose(tnp(out.u), np.asarray(ref.u), rtol=1e-13)
