@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--batch 2048] [--max-iterations 1000] [--ptxas]
                           [--kernels-only] [--log FILE] [--turns]
-                          [--parent DIR] [--costate-orders]
+                          [--parent DIR] [--lane-independence]
 
 Needs one CUDA device of compute capability 9.0 and `nvcc`; with no device it
 exits non-zero at the first phase. It imports `torch` and `ipddp2tpu_torch`
@@ -65,11 +65,37 @@ only. Phases, each printing one JSON line:
              golden objective (rtol 1e-4, dual error < 1e-7), that >= 95 %
              of the lanes converge and that K1 ran; `mixed_vs_pure` puts
              its wall time beside the flat solve's;
-  mixed_rescue  (after `serve`, while the campaign runs) the first 128
+  parallel   (after the main path, alone on the card) the time-parallel
+             backward pass (`backward_mode="parallel"`,
+             `parallel/priccati.py`) against the
+             sequential one through the sweep kernel on the first 256 lanes
+             of the mid-solve state: status and reg equal on every lane,
+             gains within PARALLEL_TOL on the lanes that pass (f64; f32
+             against K1 reported); then both passes timed in turns
+             (sequential, parallel, parallel, sequential) at B = 1 to 2048
+             in both types, with the device's launches for one pass of each
+             (`torch.profiler`);
+  parallel_solves  (in a further process, while the campaign runs)
+             concar's seed 1 alone and the
+             first 256 lanes in float64 in the parallel mode with the hybrid
+             search: seed 1 on its golden objective (rtol 1e-6), >= 95 % of
+             the lanes solved, K3 / K4 launched;
+  parallel_dist  (while the campaign runs) `solve_timesharded` of the
+             double integrator at T=1024, 8 iterations, on one NCCL rank
+             (world size 1): equal to the parallel mode bit for bit, within
+             1e-6 of "scan"; then two ranks sharing the card over gloo
+             (spawned): the same solve at D = 2 within 1e-8 of the parallel
+             mode, and 2 x 128 lanes of the main batch through
+             `solve_sharded` and `solve_global` (each rank generating only
+             its own lanes) against `solve_batch` on the union and its
+             `batch_stats`; the phase's seconds include the processes'
+             start;
+  mixed_rescue  (after `facade`, while the campaign runs) the first 128
              lanes with a 120-iteration f32 phase in chunks of 5, the stall
              freeze and the adaptive K: checks that the rescue takes exactly
              the lanes phase 2 left unconverged and solves >= 95 % of them;
-  residue    (after `mixed_rescue`) the 24 round-5 residue instances (the
+  residue    (in a further process, while the campaign runs) the 24
+             round-5 residue instances (the
              port's data file) through the mixed solve and from scratch in
              pure f64: each lane's status, iterations and KKT errors (checks
              that they are finite);
@@ -83,31 +109,36 @@ only. Phases, each printing one JSON line:
              (the table's rows counted), and a checkpoint: `save_state` at
              iteration 40, `load_state`, `run` to the end, equal bit for bit
              to the uninterrupted run;
-  serve      the first 512 instances of the batch through `solve_pool`,
+  serve      (in a further process, while the campaign runs) the first
+             512 instances of the batch through `solve_pool`,
              `solve_pool_resident` (256 slots, chunks of 40) and a lockstep
              `solve_batch`, float64 to 1e-7 with the hybrid search: solved,
              chunks, occupancy, seconds and instances a second of each;
              every instance against the lockstep result (status equal on
              >= 99 %, objectives within 1e-6 where both converged,
              iteration differences reported); K2, K3, K4 launched;
-  campaign   the JAX package's 100-instance campaign of each of the six
-             further models (`experiments/params`, as
-             `experiments/run_benchmarks.py` solves them: `solve_batch`,
+  campaign   the JAX package's 100-instance campaign of concar and the six
+             further models (`experiments/params`, solved through
+             `ipddp2tpu_torch.experiments.run_benchmarks` as the JAX
+             campaign solves them: `solve_batch`,
              f64, tolerance 1e-7, backtracking, inertia "auto" -> bk on the
              contact models) in one batch of 101 lanes, lane 100 the golden
-             anchor's instance: solved, median and largest iterations,
+             anchor's instance (gated for concar: 99 / 4.46466505 by the
+             golden rule): solved, median and largest iterations,
              seconds, launches, objectives matching the JAX results file to
              1e-4, seed 1 beside its row there, the golden lane beside its
              anchor; acrobot's batch once more with the hybrid search (K3 /
              K4 inside a contact solve) and for 20 float32 iterations (the
              bk instantiation in float); fails on non-finite iterates, fewer
-             than 95 solved, or a path's kernel not launched. The batches
-             are solved in two further processes on the same card (pushing's
-             and acrobot's hybrid one; the other five), while this one runs
-             acrobot's float32 smoke, `mixed_rescue`, `residue` and the four
-             paths after them; the campaign's lines come after those paths.
-             The seconds of all of these are taken with three processes
-             running;
+             than 95 solved, or a path's kernel not launched. Right after
+             the main path the batches are solved in three further
+             processes on the same card (pushing's alone; the other seven
+             in two groups), and `serve`, `residue` and `parallel_solves`
+             each in one more, while this one runs `facade`, acrobot's
+             float32 smoke, `mixed_rescue`, the four older paths and
+             `parallel_dist`; the further processes' lines come after
+             those paths. The seconds of all of these are taken with seven
+             processes running;
   turns      with --turns: the flat pure-f64 solve and the mixed solve in
              turns on the same batch (pure, mixed, mixed, pure);
   solve_hybrid_f32  30 iterations of the same in float32;
@@ -124,13 +155,18 @@ only. Phases, each printing one JSON line:
              after the kernel checks (`sweep_parent_and_change`, also with
              --kernels-only) K1 / K2 of that checkout's `backward_sweep.cu`
              against this tree's on the main shapes, in turns;
-  costate_orders  with --costate-orders, after the build and instead of
-             the rest: pushing's rows that end with a failed line search in
-             the campaign's batch in the associative costate order
-             (ORDER_ROWS), solved as a batch of their own in that order an
-             iteration at a time, and from the state where any failed one
-             more iteration with the kernel and the plain sweep, in both
-             orders, on the card and on the CPU.
+  lane_independence  with --lane-independence, after the build and instead
+             of the rest: pushing's campaign batch (101 lanes) against its
+             rows 7, 55, 64, 88 alone, and those against row 7 alone, each
+             pair stepped an iteration at a time in the associative order
+             and compared bit for bit on the shared lanes after
+             `initialize` and after each phase of `solve._body`; at the
+             first difference, the phase is run again under an operation
+             log on both batches and the first operation whose inputs agree
+             on the shared lanes while its outputs do not is named, with
+             its shapes (`_first_op`); and every phase of iterations 1 and
+             30 run on the whole batch and on the same inputs cut to the
+             shared lanes (`phase_invariance`).
 
 Any failed assertion or exception ends the run with a non-zero exit code and
 without the last line. The last three lines are the kernels' JSON object
@@ -173,6 +209,7 @@ from ipddp2tpu_torch.forward import (forward_pass, forward_pass_hybrid,
                                      rollout)
 from ipddp2tpu_torch.mixed import _cast_state
 from ipddp2tpu_torch import convert
+from ipddp2tpu_torch.experiments import run_benchmarks
 from ipddp2tpu_torch.models import (acrobot, cartpole, cartpole_swingup,
                                     concar, concar_quad, double_integrator,
                                     pushing, quadrotor)
@@ -188,7 +225,9 @@ from ipddp2tpu_torch.ops.forward_cuda import (forward_metrics_cuda,
                                               metrics_geometry)
 from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_LANES, SECTIONS,
                                                crafted_inputs)
-from ipddp2tpu_torch.problem import Bounds, batch_bounds
+from ipddp2tpu_torch.batch import batch_stats
+from ipddp2tpu_torch.parallel.priccati import backward_pass_parallel
+from ipddp2tpu_torch.problem import Bounds, batch_bounds, uniform_bounds
 from ipddp2tpu_torch.serve import solve_pool_resident
 from ipddp2tpu_torch.utils import load_state, profiling, save_state
 from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
@@ -1256,29 +1295,30 @@ def residue_solves(problem, max_iterations, device):
 
 # ---- the six further benchmark models: campaign and kernel checks ---------
 
-# name, module, the JAX campaign's results file (experiments/results): the
-# reference's default-path files (pushing: pushing_1_obs.txt)
-CAMPAIGN = (("concar_quad", concar_quad, "concar_quad.txt"),
-            ("quadrotor", quadrotor, "quadrotor.txt"),
-            ("cartpole_swingup", cartpole_swingup, "cartpole_swingup.txt"),
-            ("acrobot", acrobot, "acrobot_contact.txt"),
-            ("cartpole", cartpole, "cartpole_friction.txt"),
-            ("pushing", pushing, "pushing_1_obs.txt"))
-CONTACT = ("acrobot", "cartpole", "pushing")
-RESULTS = Path(__file__).resolve().parent / "experiments" / "results"
-CAMPAIGN_SEEDS = 100
-# the campaign's solves, (model, search) pairs in two groups, each group
+# the six further models (modules), whose kernels the script checks on
+# their campaign instances
+CAMPAIGN = (("concar_quad", concar_quad), ("quadrotor", quadrotor),
+            ("cartpole_swingup", cartpole_swingup), ("acrobot", acrobot),
+            ("cartpole", cartpole), ("pushing", pushing))
+CONTACT = run_benchmarks.CONTACT
+CAMPAIGN_SEEDS = run_benchmarks.SEEDS
+# the campaign's solves, (model, search) pairs in three groups, each group
 # solved in a process of its own (`campaign_beside`) while the main process
-# runs other paths, for the script's time; the groups take about the same
-# time: pushing's batch (its slowest lanes take the 1000-iteration cap) and
-# acrobot's through the hybrid search, and the other five batches
-BESIDE = ((("pushing", "backtracking"), ("acrobot", "hybrid")),
+# runs other paths, for the script's time: pushing's batch (its slowest
+# lanes take the 1000-iteration cap) alone, and the other seven in two
+# groups of about the same time
+BESIDE = ((("pushing", "backtracking"),),
           (("acrobot", "backtracking"), ("cartpole_swingup", "backtracking"),
-           ("concar_quad", "backtracking"), ("quadrotor", "backtracking"),
-           ("cartpole", "backtracking")))
+           ("concar_quad", "backtracking")),
+          (("concar", "backtracking"), ("acrobot", "hybrid"),
+           ("quadrotor", "backtracking"), ("cartpole", "backtracking")))
+# the order of the campaign's lines
+CAMPAIGN_LINES = ("concar",) + tuple(name for name, _ in CAMPAIGN)
 # the least share of the 100 that a campaign solve must converge: the JAX
 # package solves 100 of 100 on each of them but pushing (98)
 CAMPAIGN_SOLVED = {"pushing": 0.95}
+# the models whose golden lane (lane 100) is gated on its anchor's rule
+CAMPAIGN_GOLDEN = ("concar",)
 # kernel-against-plain tolerance of the Bunch-Kaufman sweep, relative to
 # each gain tensor's scale on the lanes that pass, in the working type on
 # both sides. The solve is plain substitution without refinement on the
@@ -1289,106 +1329,11 @@ CAMPAIGN_SOLVED = {"pushing": 0.95}
 BK_TOL = {torch.float64: 1e-8, torch.float32: 1e-3}
 
 
-def golden_row(name, mod):
-    """The instance of the repo's golden anchor in the params layout of
-    `mod.from_params`: the reference's seed 1 (concar_quad: concar's) or,
-    for quadrotor and the swing-up, the default instance."""
-    if name == "concar_quad":
-        th, f_lim, tau_lim, x1 = mod.seed1_instance()
-        return [f_lim, tau_lim, *th.obstacles.flatten().tolist(),
-                *x1.tolist()]
-    if name == "quadrotor":
-        return [*mod.GOAL, 0.0, 0.0, 0.0]
-    if name == "cartpole_swingup":
-        return [0.0, 0.0]
-    th = mod.SEED1_THETA
-    if name == "acrobot":
-        return [th["m1"], mod.I1, th["l1"], mod.LC1, th["m2"], mod.I2,
-                th["l2"], mod.LC2]
-    if name == "cartpole":
-        return [th["mc"], th["mp"], th["l"], *th["friction"]]
-    return [th["zx"], th["zy"], th["c"], th["mu_fric"], *th["obstacle"]]
-
-
-def golden_of(name, mod):
-    if name in ("quadrotor", "cartpole_swingup"):
-        return mod.ANCHOR_OBJECTIVE, mod.ANCHOR_ITERATIONS
-    return mod.SEED1_GOLDEN_OBJECTIVE, mod.SEED1_GOLDEN_ITERATIONS
-
-
-def campaign_batch(name, mod, dtype, device):
+def campaign_batch(name, dtype, device):
     """Lanes 0..99: the JAX campaign's instances (experiments/params, seed
     1 first); lane 100: the golden anchor's instance."""
-    rows = convert.params_rows(mod.PARAMS).tolist() + [golden_row(name, mod)]
-    return mod.from_params(rows, dtype, device)
-
-
-def reference_results(filename):
-    """The JAX campaign's per-seed table: converged, iterations,
-    objective, each [100]."""
-    rows = [line.split() for line in
-            (RESULTS / filename).read_text().splitlines()[1:]
-            if line.strip()]
-    conv = torch.tensor([r[2] == "true" for r in rows])
-    iters = torch.tensor([int(r[1]) for r in rows], dtype=torch.float64)
-    obj = torch.tensor([float(r[3]) for r in rows], dtype=torch.float64)
-    return conv, iters, obj
-
-
-def _median(t):
-    """The median as numpy takes it (the mean of the two middle values)."""
-    v = t.to(torch.float64).sort().values
-    n = v.numel()
-    return float(v[n // 2]) if n % 2 else float(0.5 * (v[n // 2 - 1]
-                                                       + v[n // 2]))
-
-
-def on_golden(name, objective, iterations, converged, golden):
-    """tests/test_benchmarks.py's rule: `_check` (objective to 1e-6,
-    iterations within max(3, 10 % + 1)); pushing: converged, objective
-    within 10 %."""
-    g_obj, g_it = golden
-    if name == "pushing":
-        return converged and math.isclose(objective, g_obj, rel_tol=0.1)
-    return (converged and math.isclose(objective, g_obj, rel_tol=1e-6)
-            and abs(iterations - g_it) <= max(3, int(0.1 * g_it) + 1))
-
-
-def campaign_fields(name, mod, results, sol, wall, counts):
-    """What one campaign solve did on the 100 reference instances, beside
-    the JAX campaign's results file, and its golden lane (lane 100)."""
-    n = CAMPAIGN_SEEDS
-    conv, iters, obj = (sol.converged[:n].cpu(), sol.iterations[:n].cpu(),
-                        sol.objective[:n].cpu())
-    r_conv, r_iters, r_obj = reference_results(results)
-    match = conv & r_conv & ((obj - r_obj).abs() <= 1e-4 * r_obj.abs())
-    g_obj, g_it = float(sol.objective[n]), int(sol.iterations[n])
-    g_conv = bool(sol.converged[n])
-    golden = golden_of(name, mod)
-    med, r_med = _median(iters), _median(r_iters)
-    return dict(
-        model=name, instances=n, solved=int(conv.sum()),
-        reference_solved=int(r_conv.sum()),
-        median_iterations=med, reference_median_iterations=r_med,
-        median_within_10_percent_or_3=abs(med - r_med) <= max(
-            0.1 * r_med, 3.0),
-        max_iterations=int(iters.max()),
-        reference_max_iterations=int(r_iters.max()), seconds=wall,
-        objectives_matching_reference_to_1e_4=int(match.sum()),
-        seed1=dict(iterations=int(iters[0]), objective=float(obj[0]),
-                   converged=bool(conv[0]),
-                   reference_iterations=int(r_iters[0]),
-                   reference_objective=float(r_obj[0])),
-        golden=dict(iterations=g_it, objective=g_obj, converged=g_conv,
-                    golden_iterations=golden[1],
-                    golden_objective=golden[0],
-                    on_golden=on_golden(name, g_obj, g_it, g_conv, golden)),
-        launches={k: v for k, v in counts.items() if v},
-        status_counts=_status_counts(sol.status[:n]),
-        # each unconverged instance: seed row, status, iterations, and
-        # whether the JAX campaign converged it
-        unsolved=[[i, int(sol.status[i]), int(iters[i]), bool(r_conv[i])]
-                  for i in torch.nonzero(~conv)[:, 0].tolist()])
+    return run_benchmarks.instances(name, dtype=dtype, device=device,
+                                    golden=True)
 
 
 def campaign_kernels(name, search):
@@ -1402,27 +1347,52 @@ def campaign_kernels(name, search):
 
 
 def campaign_solve(name, search, device):
-    """One model's campaign batch solved as `experiments/run_benchmarks.py`
-    solves it (f64, tolerance 1e-7, backtracking) or with the hybrid
-    search. Returns (fields, finite, launch counts)."""
-    mod, results = next((m, r) for n, m, r in CAMPAIGN if n == name)
-    th, b, x, u = campaign_batch(name, mod, torch.float64, device)
-    hybrid = (dict(ls_speculative=SPECULATIVE, ls_spec_continue=True)
-              if search == "hybrid" else {})
-    sol, wall, counts = timed_solve(
-        mod.problem(), b, x, u, theta=th,
-        options=Options(optimality_tolerance=1e-7, **hybrid), device=device)
-    return (campaign_fields(name, mod, results, sol, wall, counts),
-            all_finite(sol), counts)
+    """One model's campaign batch (and its golden lane) solved through
+    `ipddp2tpu_torch.experiments.run_benchmarks` as the JAX campaign solves
+    it (f64, tolerance 1e-7, backtracking, inertia "auto") or with the
+    hybrid search, beside the JAX results file. Returns (fields, finite,
+    launch counts)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = run_benchmarks.solve(name, run_benchmarks.options(search=search),
+                               device=device, golden=True)
+    torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, read_counts()
+    fields = dict(run_benchmarks.compare(name, sol, CAMPAIGN_SEEDS),
+                  seconds=wall, launches={k: v for k, v in counts.items()
+                                          if v})
+    return fields, all_finite(sol), counts
+
+
+def beside_job(job, device):
+    """One job of a process beside the main one: a campaign solve (model,
+    search), `residue_solves` ("residue", None), or `serve_phase` or
+    `parallel_solves` on the main batch's first lanes ("serve" or
+    "parallel_solves", (batch, seed))."""
+    kind, arg = job
+    if kind == "residue":
+        return residue_solves(concar.problem(), MIXED_ITERATIONS, device)
+    if kind == "serve":
+        theta, bounds, x1, u0 = concar_batch(arg[0], torch.float64, device,
+                                             arg[1])
+        return serve_phase(concar.problem(), bounds, x1, u0, theta,
+                           SPECULATIVE, device=device)
+    if kind == "parallel_solves":
+        theta, bounds, x1, u0 = concar_batch(arg[0], torch.float64, device,
+                                             arg[1])
+        return parallel_solves(concar.problem(), bounds, x1, u0, theta,
+                               SPECULATIVE)
+    return campaign_solve(kind, arg, device)
 
 
 def campaign_beside(jobs, device, conn):
-    """The second process's work: `campaign_solve` of each (name, search)
-    in `jobs` on `device`, the list of results, or the error, sent back
-    through `conn`."""
+    """A further process's work: `beside_job` of each job in `jobs` on
+    `device`, the list of results, or the error, sent back through
+    `conn`."""
     try:
-        conn.send(("ok", [campaign_solve(name, search, torch.device(device))
-                          for name, search in jobs]))
+        conn.send(("ok", [beside_job(job, torch.device(device))
+                          for job in jobs]))
     except BaseException as e:
         conn.send(("error", f"{type(e).__name__}: {e}"))
         raise
@@ -1444,7 +1414,7 @@ def start_beside(jobs, device="cuda", target=None):
 
 
 def finish_beside(beside, timeout=1000.0):
-    """The second process's results; raises on its error, on its end
+    """A further process's results; raises on its error, on its end
     without results, and after `timeout` seconds."""
     proc, recv = beside
     assert recv.poll(timeout), "campaign_beside: no result in time"
@@ -1456,7 +1426,7 @@ def finish_beside(beside, timeout=1000.0):
 
 
 def stop_beside(beside):
-    """End the second process, whatever state it is in."""
+    """End a further process, whatever state it is in."""
     proc, recv = beside
     recv.close()
     if proc.is_alive():
@@ -1469,11 +1439,15 @@ def stop_beside(beside):
 
 def campaign_gates(name, fields, finite, counts, names):
     """What fails the run: non-finite iterates, fewer solved than
-    CAMPAIGN_SOLVED (95 %), a kernel of the path never launched."""
+    CAMPAIGN_SOLVED (95 %), a kernel of the path never launched, and for
+    CAMPAIGN_GOLDEN the golden lane off its anchor."""
     assert finite, f"campaign/{name}: non-finite iterates"
     least = CAMPAIGN_SOLVED.get(name, 0.95) * CAMPAIGN_SEEDS
     assert fields["solved"] >= least, \
         f"campaign/{name}: {fields['solved']} solved < {least}"
+    if name in CAMPAIGN_GOLDEN:
+        assert fields["golden"]["on_golden"], \
+            f"campaign/{name}: golden lane {fields['golden']}"
     for k in names:
         assert counts[k] > 0, f"campaign/{name} missed the kernel {k}"
 
@@ -1482,7 +1456,8 @@ def campaign_gates(name, fields, finite, counts, names):
 # (status 7) in the campaign's batch of 101 in the associative costate
 # order on an H100; with rows 2 and 87 at the iteration cap that leaves 94
 # of the 100 solved, below the campaign's gate of 95, where the sequential
-# order solves 97. Solved as a batch of their own they converge.
+# order solves 97. Solved as a batch of their own they converge: on the card
+# a lane's path depends on its batch (`lane_independence`).
 ORDER_ROWS = (7, 55, 64, 88)
 
 
@@ -1499,57 +1474,689 @@ def costate_order(mode):
         module.costate_scan = scan
 
 
-def costate_orders(device):
-    """--costate-orders: pushing's rows ORDER_ROWS as one batch in the
-    associative order, an iteration at a time, until every lane has
-    converged or stopped; the state from which each lane's failing
-    iteration started is kept. From those states one more iteration: with
-    the sweep kernel and with the plain sweep, in both orders, on the card,
-    and with the plain sweep on the CPU. Returns the phase's fields (each
-    lane's status, iterations and objective; the next status of each failed
-    lane under each variant)."""
-    rows = list(ORDER_ROWS)
-    th, b, x, u = pushing.from_params(
-        convert.params_rows(pushing.PARAMS, rows), torch.float64, device)
-    prob = pushing.problem()
+# ---- --lane-independence: does a lane's path depend on its batch? ---------
+
+# the names `solve._body` calls, in its order: the phases compared after
+# each iteration
+BODY_PHASES = ("evaluate_derivatives", "relax_constraints", "costate_scan",
+               "contract_dynamics_hessian", "backward_pass", "dual_error",
+               "cs_error", "barrier_lagrangian", "forward_pass",
+               "_augment_filter", "_reset_filter")
+
+
+def _leaves(tree, path=""):
+    """(path, tensor) of every tensor in a nested tuple / NamedTuple."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, tuple):
+        names = getattr(tree, "_fields", range(len(tree)))
+        for name, item in zip(names, tree):
+            yield from _leaves(item, f"{path}.{name}" if path else str(name))
+
+
+def _lane_view(t, batch, lanes):
+    """The rows of `lanes` of a tensor whose first axis is the batch (or
+    the batch times a count, batch-major, as a flattened `[B*T, ...]`), as
+    `[len(lanes), ...]`; None for any other tensor."""
+    if t.dim() == 0 or t.shape[0] % batch:
+        return None
+    per = t.shape[0] // batch
+    view = t.reshape((batch, per) + tuple(t.shape[1:]))
+    return view[lanes].clone()
+
+
+def _bits(t):
+    """A tensor's bit pattern (NaN equal to the same NaN)."""
+    if t.is_floating_point():
+        return t.contiguous().view({8: torch.int64, 4: torch.int32,
+                                    2: torch.int16}[t.element_size()])
+    return t
+
+
+def _same(a, b):
+    return (a is not None and b is not None and a.shape == b.shape
+            and torch.equal(_bits(a), _bits(b)))
+
+
+def _first_difference(a, b):
+    """Where two lane views of one shape first differ: index, both values
+    (as `float.hex` too) and the largest absolute difference."""
+    diff = _bits(a) != _bits(b)
+    at = [int(i) for i in torch.nonzero(diff)[0]]
+    va, vb = a[tuple(at)].item(), b[tuple(at)].item()
+    out = dict(index=at, value_a=va, value_b=vb)
+    if a.is_floating_point():
+        gap = (a.double() - b.double())[diff].abs()
+        out.update(hex_a=float(va).hex(), hex_b=float(vb).hex(),
+                   differing=int(diff.sum()),
+                   max_abs_diff=float(gap.nan_to_num(nan=float("inf"))
+                                      .max()))
+    return out
+
+
+class PhaseRecorder:
+    """Wraps the names of BODY_PHASES in `ipddp2tpu_torch.solve` while it
+    is entered: every call keeps its arguments and the rows of `lanes` of
+    its outputs."""
+
+    def __init__(self, batch, lanes):
+        self.batch, self.lanes, self.calls = batch, lanes, []
+
+    def __enter__(self):
+        module = importlib.import_module("ipddp2tpu_torch.solve")
+        self.saved = {n: getattr(module, n) for n in BODY_PHASES}
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                self.calls.append((name, fn, args, kw, [
+                    (p, _lane_view(t, self.batch, self.lanes))
+                    for p, t in _leaves(out if isinstance(out, tuple)
+                                        else (out,))]))
+                return out
+            return call
+
+        for name, fn in self.saved.items():
+            setattr(module, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        module = importlib.import_module("ipddp2tpu_torch.solve")
+        for name, fn in self.saved.items():
+            setattr(module, name, fn)
+
+
+def _op_log(fn, args, kw, batch, lanes):
+    """Every aten operation `fn(*args, **kw)` dispatches, in order: (name,
+    inputs, outputs, shapes), the tensors as rows of `lanes` (or whole,
+    when they have no batch axis and at most 1e5 elements). A launch
+    through `ctypes` (the sweep kernels) is no aten operation: its outputs
+    show up as inputs of the next one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def keep(t):
+        if not isinstance(t, torch.Tensor):
+            return None
+        v = _lane_view(t, batch, lanes)
+        if v is None and t.numel() <= 100_000:
+            v = ("whole", t.detach().clone())
+        return v
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, a=(), k=None):
+            k = k or {}
+            flat = [x for _, x in _leaves(tuple(a) + tuple(k.values()))]
+            ins = [keep(x) for x in flat]
+            out = func(*a, **k)
+            outs = [keep(x) for _, x in
+                    _leaves(out if isinstance(out, tuple) else (out,))]
+            self.ops.append((str(func), ins, outs,
+                             [list(x.shape) for x in flat]))
+            return out
+
+    enabled = graphs.ENABLED
+    graphs.ENABLED = False            # a replayed graph hides its operations
+    try:
+        with Log() as log:
+            out = fn(*args, **kw)
+    finally:
+        graphs.ENABLED = enabled
+    return log.ops, [_lane_view(t, batch, lanes) for _, t in
+                     _leaves(out if isinstance(out, tuple) else (out,))]
+
+
+def _comparable(x, y):
+    """Both kept the same way (rows of the lanes, or whole) and of one
+    shape: only then are two recorded tensors compared."""
+    return (x is not None and y is not None
+            and isinstance(x, tuple) == isinstance(y, tuple)
+            and (x[1] if isinstance(x, tuple) else x).shape
+            == (y[1] if isinstance(y, tuple) else y).shape)
+
+
+def _views_equal(x, y):
+    """Equal, or not comparable."""
+    if not _comparable(x, y):
+        return True
+    return _same(*((x[1], y[1]) if isinstance(x, tuple) else (x, y)))
+
+
+def _first_op(ops_a, ops_b):
+    """Pair the two operation logs (the longest matching runs of names;
+    a host loop may run more often in one batch) and find, among the pairs
+    whose inputs have the same shapes but for the batch axis and whose
+    outputs carry the batch axis, the first whose outputs differ on the
+    shared lanes and the first whose inputs agree there while its outputs
+    do not: the operation that makes the difference, with its input shapes
+    in both batches. (An output without the batch axis, such as one lane
+    picked out by `vmap`'s loop over lanes for an operation without a
+    batching rule, is not compared.)"""
+    import difflib
+    names = [[op[0] for op in ops] for ops in (ops_a, ops_b)]
+    blocks = difflib.SequenceMatcher(None, *names,
+                                     autojunk=False).get_matching_blocks()
+    pairs = [(m.a + i, m.b + i) for m in blocks for i in range(m.size)]
+    found = dict(ops=[len(ops_a), len(ops_b)], paired=len(pairs))
+    lanes_of = lambda x: x is not None and not isinstance(x, tuple)
+    for i, j in pairs:
+        name, ia, oa, sa = ops_a[i]
+        _, ib, ob, sb = ops_b[j]
+        if len(sa) != len(sb) or any(x[1:] != y[1:]
+                                     for x, y in zip(sa, sb)):
+            continue
+        bad = [n for n, (x, y) in enumerate(zip(oa, ob))
+               if lanes_of(x) and lanes_of(y) and not _views_equal(x, y)]
+        if not bad:
+            continue
+        row = dict(op_index=[i, j], op=name, input_shapes_a=sa,
+                   input_shapes_b=sb, output=bad[0],
+                   **_first_difference(oa[bad[0]], ob[bad[0]]))
+        found.setdefault("first_differing_output", row)
+        if all(_views_equal(x, y) for x, y in zip(ia, ib)):
+            found["culprit"] = row
+            break
+    return found
+
+
+def lane_paths(problem, batches, options, max_iterations):
+    """Step two batches (each (theta, bounds, x1, u0, lanes): the rows of
+    the lanes they share) one iteration at a time, as `solve.run` does,
+    recording the outputs of every phase of `_body`; after each iteration
+    compare the shared lanes bit for bit. At the first difference, run the
+    first differing phase once more on each batch's recorded arguments
+    under an operation log and find the operation that makes it. Returns
+    the fields of the comparison."""
+    states = [initialize(problem, th, batch_bounds(b, x.shape[0]), x, u,
+                         options, device=x.device)
+              for th, b, x, u, _ in batches]
+    sa, sb = (tree_lanes(s, b_[4]) for s, b_ in zip(states, batches))
+    for name, a_, b_ in zip(sa._fields, sa, sb):
+        if not _same(a_, b_):
+            return dict(differ=True, iteration=0, phase="initialize",
+                        output=name, **_first_difference(a_, b_))
+    for it in range(max_iterations):
+        lives = [(s.status == 0) & ~s.converged & (s.k < max_iterations)
+                 for s in states]
+        shared = [live[lanes] for live, (*_, lanes) in zip(lives, batches)]
+        if not bool(shared[0].any() or shared[1].any()):
+            return dict(differ=False, iterations=it,
+                        k=states[0].k[batches[0][4]].tolist(),
+                        status=states[0].status[batches[0][4]].tolist())
+        recs = []
+        for i, ((th, b, x, u, lanes), s) in enumerate(zip(batches, states)):
+            bb = batch_bounds(b, x.shape[0])
+            with PhaseRecorder(x.shape[0], lanes) as rec:
+                new = iteration(problem, bb, s, th, options,
+                                device=x.device)
+            states[i] = select_state(lives[i], new, s)
+            recs.append(rec.calls)
+        first = None
+        for ca, cb in zip(*recs):
+            assert ca[0] == cb[0], (ca[0], cb[0])
+            for (path, va), (_, vb) in zip(ca[4], cb[4]):
+                if va is not None and not _same(va, vb):
+                    first = (ca, cb, path, _first_difference(va, vb))
+                    break
+            if first:
+                break
+        sa, sb = (tree_lanes(s, b_[4]) for s, b_ in zip(states, batches))
+        state_same = all(_same(a_, b_) for a_, b_ in zip(sa, sb))
+        if first is None and state_same:
+            continue
+        fields = dict(differ=True, iteration=it + 1, k_after=sa.k.tolist(),
+                      status_after=[sa.status.tolist(), sb.status.tolist()])
+        if first is None:
+            fields["phase"] = "select (state after the iteration)"
+            return fields
+        ca, cb, path, where = first
+        fields.update(phase=ca[0], output=path, **where)
+        logs = [_op_log(c[1], c[2], c[3], bt[2].shape[0], bt[4])
+                for c, bt in zip((ca, cb), batches)]
+        fields["rerun_reproduces"] = all(
+            all(_views_equal(v, w) for (_, v), w in zip(c[4], log[1]))
+            for c, log in zip((ca, cb), logs))
+        fields["operations"] = _first_op(logs[0][0], logs[1][0])
+        return fields
+    return dict(differ=False, iterations=max_iterations)
+
+
+def tree_lanes(state, lanes):
+    return type(state)(*(t[lanes] for t in state))
+
+
+def _slice_args(tree, batch, lanes):
+    """Every tensor of a nested tuple whose first axis is the batch, cut
+    to the rows `lanes` (the problem, options and other leaves as they
+    are)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[lanes] if tree.dim() and tree.shape[0] == batch else tree
+    if isinstance(tree, dict):
+        return {k: _slice_args(v, batch, lanes) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        parts = [_slice_args(t, batch, lanes) for t in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else tuple(parts)
+    return tree
+
+
+def phase_invariance(problem, data, lanes, options, iterations):
+    """Each phase of `_body` (and `initialize`) run on the batch `data` =
+    (theta, bounds, x1, u0) and once more on the same inputs cut to
+    `lanes`, at each iteration in `iterations` of the batch's own path:
+    whether the lanes' outputs agree bit for bit and, where they do not,
+    the first operation that makes them differ (`_first_op`). What differs
+    here differs with identical inputs, so it is the batch's shape alone."""
+    th, b, x, u = data
+    B = x.shape[0]
+    sub = len(lanes)
+    everyone = torch.arange(sub, device=x.device)
+    out = {}
+
+    def check(fn, args, kw):
+        full = fn(*args, **kw)
+        cut = fn(*_slice_args(args, B, lanes), **_slice_args(kw, B, lanes))
+        pairs = [(_lane_view(t, B, lanes), _lane_view(c, sub, everyone))
+                 for (_, t), (_, c) in zip(
+                     _leaves(full if isinstance(full, tuple) else (full,)),
+                     _leaves(cut if isinstance(cut, tuple) else (cut,)))]
+        bad = [i for i, (p, q) in enumerate(pairs)
+               if p is not None and not _same(p, q)]
+        row = dict(invariant=not bad)
+        if bad:
+            row.update(output=bad[0], **_first_difference(*pairs[bad[0]]))
+            logs = (_op_log(fn, args, kw, B, lanes)[0],
+                    _op_log(fn, _slice_args(args, B, lanes),
+                            _slice_args(kw, B, lanes), sub, everyone)[0])
+            row["operations"] = _first_op(*logs)
+        return row
+
+    bb = batch_bounds(b, B)
+    init_args = (problem, th, bb, x, u, options)
+    out["initialize"] = check(initialize, init_args, dict(device=x.device))
+    s = initialize(*init_args, device=x.device)
+    for it in range(max(iterations) + 1):
+        live = (s.status == 0) & ~s.converged
+        with PhaseRecorder(B, lanes) as rec:
+            new = iteration(problem, bb, s, th, options, device=x.device)
+        if it in iterations:
+            seen = {}
+            for name, fn, args, kw, _ in rec.calls:
+                if name not in seen:
+                    seen[name] = check(fn, args, kw)
+            out[f"iteration_{it + 1}"] = seen
+        s = select_state(live, new, s)
+    return out
+
+
+def lane_independence(device, rows=ORDER_ROWS, problem=None,
+                      max_iterations=1000):
+    """--lane-independence: pushing's campaign batch (101 lanes, f64,
+    backtracking, inertia "auto" -> bk, the associative costate order)
+    against the batch of `rows` alone, and that batch against its first
+    row alone, each pair stepped by `lane_paths`. `problem` replaces
+    pushing's (a shorter horizon on the CPU). Returns the phase's
+    fields."""
+    prob = problem or pushing.problem()
+    T = prob.T
+    cut = lambda data: (data[0], Bounds(data[1].lower[:, :T],
+                                        data[1].upper[:, :T]),
+                        data[2], data[3][:, :T])
+    big = cut(campaign_batch("pushing", torch.float64, device))
+    few = cut(pushing.from_params(convert.params_rows(pushing.PARAMS, rows),
+                                  torch.float64, device))
+    one = cut(pushing.from_params(convert.params_rows(pushing.PARAMS,
+                                                      rows[:1]),
+                                  torch.float64, device))
+    idx = lambda r: torch.tensor(r, device=device)
     opts = Options(optimality_tolerance=1e-7)
-    plain = Options(optimality_tolerance=1e-7, backward_kernel="torch")
-    bb = batch_bounds(b, len(rows))
-    s = initialize(prob, th, bb, x, u, opts, device=device)
-    before = s
+    out = dict(rows=list(rows), batch=big[2].shape[0], T=T)
     t0 = time.perf_counter()
     with costate_order("assoc"):
-        while True:
-            live = (s.status == 0) & ~s.converged & (s.k < opts.max_iterations)
-            if not bool(live.any()):
-                break
-            new = iteration(prob, bb, s, th, opts, device=device)
-            failing = live & (new.status != 0)
-            before = select_state(failing, s, before)
-            s = select_state(live, new, s)
+        out["campaign_batch_against_rows"] = lane_paths(
+            prob, ((*big, idx(list(rows))),
+                   (*few, idx(list(range(len(rows)))))),
+            opts, max_iterations)
+        out["rows_against_first_alone"] = lane_paths(
+            prob, ((*few, idx([0])), (*one, idx([0]))), opts,
+            max_iterations)
+        out["phases_rows"] = phase_invariance(
+            prob, big, idx(list(rows)), opts, (0, 29))
+        out["phases_first_row"] = phase_invariance(
+            prob, big, idx(list(rows[:1])), opts, (0,))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---- parallel / parallel_dist: the time-parallel pass and time sharding ---
+
+# lanes of the main batch's mid-solve state held against the sweep kernel,
+# and solved in the parallel mode
+PARALLEL_BATCH = 256
+PARALLEL_SIZES = (1, 8, 64, 512, 2048)
+# parallel against sequential gains, relative to each tensor's scale on the
+# lanes that pass: tests/test_priccati.py:144-150 (non-commuting concar)
+PARALLEL_TOL = 1e-7
+# the time-sharded solve: tests/test_timeshard.py's long-horizon case
+DIST_T, DIST_ITERATIONS = 1024, 8
+SHARD_LANES, SHARD_ITERATIONS = 128, 5
+DIST_WORLD = 2
+
+
+def backward_inputs(problem, theta, s):
+    """What `solve._body` hands the backward pass at the state `s`:
+    (deriv, nominal, lam, second)."""
+    deriv = evaluate_derivatives(problem, theta, s.x, s.u, s.phi)
+    lam = costate_scan(deriv, s.phi)
+    second = deriv.cH_phi + contract_dynamics_hessian(problem, theta, s.x,
+                                                      s.u, lam[:, 1:])
+    nominal = (relax_constraints(problem, s.c_raw, s.mu), s.il, s.iu, s.phi,
+               s.zl, s.zu)
+    return deriv, nominal, lam, second
+
+
+def backward_both(problem, theta, s, options):
+    """The sequential backward pass (the sweep kernel in `options`' type)
+    and the parallel one, as functions of nothing, on the state `s`."""
+    deriv, nominal, lam, second = backward_inputs(problem, theta, s)
+    args = (problem, deriv, nominal, s.mu, s.reg_last, options)
+    kw = dict(lam=lam, second=second)
+    return (lambda: backward_pass(*args, **kw),
+            lambda: backward_pass_parallel(*args, **kw))
+
+
+def parallel_against_sweep(problem, theta, s, options):
+    """The parallel backward pass against the sequential one through the
+    sweep kernel on one state: status and reg on every lane, each gain
+    tensor's largest difference relative to its scale on the lanes where
+    both pass."""
+    seq, par = backward_both(problem, theta, s, options)
+    reset_counts()
+    a = seq()
+    sweeps = sum(read_counts().values())
+    b = par()
+    both = (a.status == 0) & (b.status == 0)
+    errs = {name: rel_err(x, y, both)[1]
+            for name, x, y in zip(GAIN_NAMES, b.gains, a.gains)}
+    return dict(lanes=int(s.mu.shape[0]),
+                status_equal=bool((a.status == b.status).all()),
+                reg_equal=bool(torch.equal(a.reg, b.reg)),
+                lanes_passing=int(both.sum()),
+                sweep_launches=sweeps, max_rel_err=errs,
+                worst_rel_err=max(errs.values()))
+
+
+def device_launches(fn):
+    """Kernels and copies the device runs for one call of `fn`
+    (`torch.profiler`); None where the profiler sees no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    copies = sum(e.count for e in events
+                 if e.key.startswith(("Memcpy", "Memset")))
+    return dict(kernels=sum(e.count for e in events) - copies,
+                copies=copies)
+
+
+def backward_turns(problem, theta, mid, sizes, reps=3):
+    """The sequential pass through the sweep kernel and the parallel pass
+    at each batch size of `sizes` (the first lanes of `mid`), in float64
+    and float32: ms per pass from CUDA events over `reps` passes, in
+    turns (sequential, parallel, parallel, sequential), and the device's
+    launches for one pass of each."""
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        opts = Options(optimality_tolerance=1e-7, backward_kernel="cuda")
+        for B in sizes:
+            s = cast_tree(tree_lanes(mid, slice(0, B)), dtype)
+            th = concar.Theta(theta.obstacles[:B].to(dtype))
+            fns = dict(zip(("sequential", "parallel"),
+                           backward_both(problem, th, s, opts)))
+            ms = {k: [] for k in fns}
+            for k in ("sequential", "parallel", "parallel", "sequential"):
+                ms[k].append(cuda_ms(fns[k], reps))
+            rows[f"{'f64' if dtype == torch.float64 else 'f32'}/B={B}"] = \
+                dict(turns_ms=ms,
+                     **{f"{k}_ms": sum(v) / len(v) for k, v in ms.items()},
+                     **{f"{k}_launches": device_launches(f)
+                        for k, f in fns.items()})
+    return rows
+
+
+def parallel_solves(problem, bounds, x1, u0, theta, K):
+    """Concar's seed-1 instance alone, then the first PARALLEL_BATCH lanes
+    of the main batch, in float64 with backward_mode="parallel" and the
+    hybrid search (K3 / K4). Returns the fields of both."""
+    opts = Options(optimality_tolerance=1e-7, backward_mode="parallel",
+                   ls_speculative=K, ls_spec_continue=True)
+    out = {}
+    for label, n in (("seed1", 1), ("batch", PARALLEL_BATCH)):
+        sol, wall, counts = timed_solve(
+            problem, Bounds(bounds.lower[:n], bounds.upper[:n]), x1[:n],
+            u0[:n], theta=concar.Theta(theta.obstacles[:n]), options=opts)
+        out[label] = dict(
+            **solve_fields(sol, n, wall),
+            lane0_on_golden=bool(sol.converged[0]) and math.isclose(
+                float(sol.objective[0]), concar.SEED1_GOLDEN_OBJECTIVE,
+                rel_tol=1e-6),
+            finite=all_finite(sol),
+            launches={k: v for k, v in counts.items() if v})
+    return out
+
+
+def di_long(T, device):
+    """The double integrator at horizon T (tests/test_timeshard.py's
+    long-horizon case): (problem, bounds, x1 [1, nx], u0 [1, T, nu])."""
+    prob = dataclasses.replace(double_integrator.problem(), T=T)
+    inf = float("inf")
+    lo = torch.tensor([-double_integrator.FORCE_LIMIT, 0.0, 0.0],
+                      dtype=torch.float64, device=device)
+    hi = torch.tensor([double_integrator.FORCE_LIMIT, inf, inf],
+                      dtype=torch.float64, device=device)
+    return (prob, uniform_bounds(T, lo, hi),
+            double_integrator.initial_state(device=device)[None],
+            torch.full((1, T, double_integrator.NU), 0.01,
+                       dtype=torch.float64, device=device))
+
+
+def dist_options(iterations, **kw):
+    return Options(optimality_tolerance=1e-7, max_iterations=iterations,
+                   auto_tune=False, **kw)
+
+
+def one_rank_nccl(device):
+    """World size 1 over NCCL on the card: `solve_timesharded` of the long
+    double integrator against the parallel and the sequential modes."""
+    from ipddp2tpu_torch.parallel import make_mesh
+    from ipddp2tpu_torch.parallel.timeshard import solve_timesharded
+    SCRATCH.mkdir(exist_ok=True)
+    store = SCRATCH / "nccl_store"
+    store.unlink(missing_ok=True)
+    data = di_long(DIST_T, device)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        ts = solve_timesharded(*data, options=dist_options(DIST_ITERATIONS),
+                               mesh=make_mesh(axis="sp"), device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    par = solve_batch(*data, options=dist_options(
+        DIST_ITERATIONS, backward_mode="parallel"), device=device)
+    seq = solve_batch(*data, options=dist_options(DIST_ITERATIONS),
+                      device=device)
+    close = lambda a, b: bool(torch.allclose(a, b, rtol=1e-6, atol=1e-8))
+    fields = dict(T=DIST_T, iterations=DIST_ITERATIONS,
+                  timeshard_seconds=wall,
+                  equal_to_parallel=bool(torch.equal(ts.x, par.x)
+                                         and torch.equal(ts.u, par.u)),
+                  close_to_scan=close(ts.x, seq.x) and close(ts.u, seq.u),
+                  max_abs_diff_to_scan=float(max((ts.x - seq.x).abs().max(),
+                                                 (ts.u - seq.u).abs().max())))
+    return fields, par
+
+
+def dist_rank(rank, world, work, device="cuda"):
+    """One rank of the two-rank run on the card (spawned): a gloo group
+    through a `FileStore` file in `work`, the long double integrator with
+    its value scan sharded over time, then SHARD_LANES lanes a rank of the
+    batch in `work/lanes.npz` through `solve_sharded` and `solve_global`
+    (each rank generating only its own lanes); writes `rank<r>.npz`."""
+    import numpy as np
+    from ipddp2tpu_torch.parallel import make_mesh, solve_sharded
+    from ipddp2tpu_torch.parallel.multihost import (initialize_distributed,
+                                                    solve_global)
+    from ipddp2tpu_torch.parallel.timeshard import solve_timesharded
+    work = Path(work)
+    dev = torch.device(device)
+    initialize_distributed(init_method=f"file://{work / 'store'}",
+                           world_size=world, rank=rank, backend="gloo",
+                           device=dev)
+    out, generated = {}, []
+    try:
+        ts = solve_timesharded(*di_long(DIST_T, dev),
+                               options=dist_options(DIST_ITERATIONS),
+                               mesh=make_mesh(axis="sp"), device=dev)
+        out.update(ts_x=ts.x, ts_u=ts.u)
+        lanes = {k: torch.as_tensor(v) for k, v in
+                 np.load(work / "lanes.npz").items()}
+        batch = concar_lanes(lanes, dev)
+
+        def gen(i):
+            generated.append(i)
+            th, b, x, u = concar_lanes({k: v[i:i + 1]
+                                        for k, v in lanes.items()}, dev)
+            return (Bounds(b.lower[0], b.upper[0]), x[0], u[0],
+                    concar.Theta(th.obstacles[0]))
+
+        opts = dist_options(SHARD_ITERATIONS)
+        for tag, (sol, stats) in (
+                ("sh", solve_sharded(concar.problem(), *batch[1:],
+                                     theta=batch[0], options=opts,
+                                     device=dev)),
+                ("gl", solve_global(concar.problem(), gen,
+                                    batch[2].shape[0], options=opts,
+                                    device=dev))):
+            for f in ("x", "u", "iterations", "status", "converged"):
+                out[f"{tag}_{f}"] = getattr(sol, f)
+            out[f"{tag}_stats"] = torch.stack(
+                [torch.as_tensor(v, dtype=torch.float64).cpu()
+                 for v in stats])
+        out["generated"] = torch.tensor(generated)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.savez(work / f"rank{rank}.npz",
+             **{k: v.cpu().numpy() for k, v in out.items()})
+
+
+def concar_lanes(lanes, device):
+    """(theta, bounds, x1, u0) of concar instances given as tensors
+    obstacles [n, 4, 3], f_lim [n], tau_lim [n], x1 [n, 4]."""
+    n = lanes["x1"].shape[0]
+    return (concar.Theta(lanes["obstacles"].to(device)),
+            concar.bounds(lanes["f_lim"], lanes["tau_lim"], device=device),
+            lanes["x1"].to(device),
+            concar.initial_controls(device=device).expand(n, concar.T,
+                                                          concar.NU))
+
+
+def two_ranks_gloo(par, bounds, x1, theta, device):
+    """Two ranks sharing the card over gloo (`dist_rank`, spawned): the
+    time-sharded solve at D = 2 against the parallel one `par`, the sharded
+    and globally generated solves of 2 x SHARD_LANES lanes of the main
+    batch against `solve_batch` on the same lanes and against `batch_stats`
+    of the union (the median as the mean of the shards' medians). Returns
+    the fields and whether every gate holds."""
+    import numpy as np
+    work = SCRATCH / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    n = DIST_WORLD * SHARD_LANES
+    np.savez(work / "lanes.npz", obstacles=theta.obstacles[:n].cpu().numpy(),
+             f_lim=bounds.upper[:n, 0, 0].cpu().numpy(),
+             tau_lim=bounds.upper[:n, 0, 1].cpu().numpy(),
+             x1=x1[:n].cpu().numpy())
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dist_rank,
+                         args=(r, DIST_WORLD, str(work), str(device)))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
     wall = time.perf_counter() - t0
-    failed = torch.nonzero(s.status == 7)[:, 0].tolist()
-    nexts = {}
-    cpu = torch.device("cpu")
-    for label, o, mode, dev in (
-            ("kernel_assoc", opts, "assoc", device),
-            ("plain_assoc", plain, "assoc", device),
-            ("kernel_seq", opts, "seq", device),
-            ("plain_seq", plain, "seq", device),
-            ("plain_assoc_cpu", plain, "assoc", cpu),
-            ("plain_seq_cpu", plain, "seq", cpu)):
-        if not failed:
-            break
-        with costate_order(mode):
-            n = iteration(prob, bb, before, th, o, device=dev)
-        nexts[label] = [int(n.status[i]) for i in failed]
-    return dict(
-        order="assoc", rows=rows, seconds=wall,
-        status=s.status.tolist(), iterations=s.k.tolist(),
-        converged=s.converged.tolist(), objective=s.objective.tolist(),
-        failed_rows=[rows[i] for i in failed],
-        failed_at=[int(before.k[i]) for i in failed],
-        next_status_from_the_failing_state=nexts)
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * DIST_WORLD, f"parallel_dist ranks: exit {codes}"
+    outs = [{k: torch.as_tensor(v) for k, v in
+             np.load(work / f"rank{r}.npz").items()}
+            for r in range(DIST_WORLD)]
+    th, b, x, u = concar_lanes({k: torch.as_tensor(v) for k, v in
+                                np.load(work / "lanes.npz").items()}, device)
+    ref = solve_batch(concar.problem(), b, x, u, theta=th,
+                      options=dist_options(SHARD_ITERATIONS), device=device)
+    union = batch_stats(ref)
+    medians = [float(ref.iterations[r * SHARD_LANES:(r + 1) * SHARD_LANES]
+                     .to(torch.float64).quantile(0.5))
+               for r in range(DIST_WORLD)]
+    expect = torch.tensor([float(v) for v in union], dtype=torch.float64)
+    expect[4] = sum(medians) / DIST_WORLD
+    close = lambda a, b_, rtol, atol: bool(torch.allclose(
+        a.to(b_.device), b_, rtol=rtol, atol=atol))
+    fields = dict(ranks=DIST_WORLD, backend="gloo", seconds_with_start=wall)
+    ok = True
+    for r, o in enumerate(outs):
+        rows = slice(r * SHARD_LANES, (r + 1) * SHARD_LANES)
+        shard = dict(
+            timeshard_close_to_parallel=close(o["ts_x"], par.x, 1e-8, 1e-10)
+            and close(o["ts_u"], par.u, 1e-8, 1e-10),
+            timeshard_max_abs_diff=float(max(
+                (o["ts_x"].to(device) - par.x).abs().max(),
+                (o["ts_u"].to(device) - par.u).abs().max())),
+            sharded_equal_bits=bool(
+                torch.equal(o["sh_x"].to(device), ref.x[rows])
+                and torch.equal(o["sh_u"].to(device), ref.u[rows])),
+            sharded_close=close(o["sh_x"], ref.x[rows], 1e-8, 1e-8)
+            and close(o["sh_u"], ref.u[rows], 1e-8, 1e-8),
+            counters_equal=bool(
+                torch.equal(o["sh_iterations"].to(device),
+                            ref.iterations[rows])
+                and torch.equal(o["sh_status"].to(device),
+                                ref.status[rows])),
+            stats=o["sh_stats"].tolist(),
+            stats_as_union=close(o["sh_stats"], expect, 1e-8, 0.0),
+            global_equal_to_sharded=all(
+                torch.equal(o[f"gl_{f}"], o[f"sh_{f}"]) for f in
+                ("x", "u", "iterations", "status", "converged", "stats")),
+            generated=[int(o["generated"].min()), int(o["generated"].max()),
+                       int(o["generated"].numel())])
+        shard["generated_only_its_own"] = shard["generated"] == [
+            rows.start, rows.stop - 1, SHARD_LANES]
+        ok = ok and all(shard[k] for k in (
+            "timeshard_close_to_parallel", "sharded_close", "counters_equal",
+            "stats_as_union", "global_equal_to_sharded",
+            "generated_only_its_own"))
+        fields[f"rank{r}"] = shard
+    fields["union_stats"] = expect.tolist()
+    return fields, ok
 
 
 def mid_state(problem, theta, bounds, x1, u0, iters):
@@ -1999,11 +2606,12 @@ def main():
                     help="time the pure-f64 hybrid solve and the mixed "
                          "solve in turns on the same batch: pure, mixed, "
                          "mixed, pure")
-    ap.add_argument("--costate-orders", action="store_true",
-                    help="after the build, only pushing's rows that fail "
-                         "in the campaign in the associative costate "
-                         "order, solved alone in that order and traced to "
-                         "any failure (no result line)")
+    ap.add_argument("--lane-independence", action="store_true",
+                    help="after the build, only pushing's campaign batch "
+                         "against its rows 7, 55, 64, 88 alone and the "
+                         "first of them alone, stepped an iteration at a "
+                         "time and compared bit for bit after each phase "
+                         "(no result line)")
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a checkout of the parent commit: time its "
                          "forward-metrics kernel against this tree's, in "
@@ -2041,7 +2649,7 @@ def main():
     dims_c = dict(nx=prob.nx, nu=prob.nu, nc=prob.nc)
     dims_t = dict(nx=tiny.nx, nu=tiny.nu, nc=tiny.nc)
     dims_d = dict(nx=di.nx, nu=di.nu, nc=di.nc)
-    more = {name: mod.problem() for name, mod, _ in CAMPAIGN}
+    more = {name: mod.problem() for name, mod in CAMPAIGN}
     dims_of = lambda p: dict(nx=p.nx, nu=p.nu, nc=p.nc)
     dims_ldl = [dims_of(more[n]) for n in ("quadrotor", "cartpole_swingup",
                                            "cartpole")]
@@ -2077,9 +2685,9 @@ def main():
          libraries=[p.name for p in libs],
          ptxas={name: build.ptxas_report(log) for name, log in logs.items()},
          sweep_geometry=geometry)
-    if a.costate_orders:
-        emit("costate_orders", **costate_orders(dev))
-        print("chip_smoke: --costate-orders, stopping after it",
+    if a.lane_independence:
+        emit("lane_independence", **lane_independence(dev))
+        print("chip_smoke: --lane-independence, stopping after it",
               file=sys.stderr)
         return 10
 
@@ -2256,7 +2864,7 @@ def main():
     # mid-solve states of the six models on the campaign's instances
     t0 = time.perf_counter()
     mids = {}
-    for name, mod, _ in CAMPAIGN:
+    for name, mod in CAMPAIGN:
         th_m, b_m, x_m, u_m = mod.from_params(
             convert.params_rows(mod.PARAMS), torch.float64, dev)
         mids[name] = (th_m, b_m, mid_state(more[name], th_m, b_m, x_m, u_m,
@@ -2324,7 +2932,7 @@ def main():
          max_rel_err=ldl_models, cartpole_ldl=cartpole_ldl)
     # K3 / K4 with each new model's device functions, float64, K = 8
     fwd_models = {}
-    for name, mod, _ in CAMPAIGN:
+    for name, mod in CAMPAIGN:
         th_m, b_m, s_m = mids[name]
         deriv = evaluate_derivatives(more[name], th_m, s_m.x, s_m.u, s_m.phi)
         gains = backward_pass(
@@ -2451,40 +3059,50 @@ def main():
         f"only {fields['solved']}/{a.batch} converged"
     assert counts["backward_sweep_f32"] > 0
 
-    # ---- facade: concar through the reference-style Solver --------------
-    emit("facade", T=prob.T, **facade_phase(dev))
+    # ---- parallel: the parallel backward pass against the sweep -----
+    t0 = time.perf_counter()
+    lanes_p = slice(0, PARALLEL_BATCH)
+    against = {}
+    for dtype in (torch.float64, torch.float32):
+        against[sfx[dtype]] = parallel_against_sweep(
+            prob, concar.Theta(theta.obstacles[lanes_p].to(dtype)),
+            cast_tree(tree_lanes(mid, lanes_p), dtype),
+            Options(optimality_tolerance=1e-7, backward_kernel="cuda"))
+    turns = backward_turns(prob, theta, mid, PARALLEL_SIZES)
+    emit("parallel", batch=PARALLEL_BATCH, T=prob.T,
+         tolerance=PARALLEL_TOL, against_sweep=against,
+         backward_by_batch=turns, seconds=time.perf_counter() - t0)
+    check = against["f64"]
+    assert check["status_equal"] and check["reg_equal"], \
+        f"parallel: status / reg differ from the sweep kernel: {check}"
+    assert check["worst_rel_err"] <= PARALLEL_TOL, \
+        f"parallel: gains {check['worst_rel_err']} from the sweep kernel"
 
-    # ---- serve: the two pools against lockstep on 512 instances ---------
-    fields, pool_counts = serve_phase(prob, bounds, x1, u0, theta, K)
-    emit("serve", **fields)
-    for name, counts in pool_counts.items():
-        record(f"serve/{name}", counts, names64)
-    record("serve/lockstep", {**dict.fromkeys(names64, 0),
-                              **fields["lockstep"]["launches"]}, names64)
-    for name in ("solve_pool", "solve_pool_resident"):
-        cmp = fields[name]["against_lockstep"]
-        assert cmp["same_status"] >= 0.99 * SERVE_BATCH, \
-            f"{name}: status as lockstep on {cmp['same_status']} only"
-        assert cmp["max_rel_objective_diff"] <= 1e-6, \
-            f"{name}: objective {cmp['max_rel_objective_diff']} from lockstep"
-
-    # ---- campaign, and the paths this process runs beside it ------------
-    # Every model's campaign batch is solved in one of two further
-    # processes on the card (`campaign_beside`, the groups of BESIDE);
-    # meanwhile this one runs acrobot's float32 smoke, `mixed_rescue`,
-    # `residue` and the four older paths. The campaign's lines come after
-    # those, in CAMPAIGN's order.
+    # ---- the paths solved in further processes beside this one ---------
+    # Every model's campaign batch is solved in one of three further
+    # processes on the card (`campaign_beside`, the groups of BESIDE), and
+    # `serve`, `residue` and `parallel_solves` each in one more; meanwhile
+    # this one runs `facade`, acrobot's float32 smoke, `mixed_rescue`, the
+    # four older paths and `parallel_dist`. The lines
+    # of the further processes come after those: serve, residue,
+    # parallel_solves, the campaign in CAMPAIGN_LINES' order.
     bk64, bk32 = "backward_sweep_bk_f64", "backward_sweep_bk_f32"
     campaign_launches = {}
     besides = []
+    serve_job = ("serve", (a.batch, a.seed))
+    paths_job = ("parallel_solves", (a.batch, a.seed))
+    groups = BESIDE + ((serve_job,), (("residue", None),), (paths_job,))
     try:
-        for jobs in BESIDE:
+        for jobs in groups:
             besides.append(start_beside(jobs))
+
+        # ---- facade: concar through the reference-style Solver ----------
+        emit("facade", T=prob.T, **facade_phase(dev))
 
         # ---- campaign_f32: acrobot's batch, 20 float32 iterations --------
         # the bk instantiation in float
-        th32c, b32c, x32c, u32c = campaign_batch("acrobot", acrobot,
-                                                 torch.float32, dev)
+        th32c, b32c, x32c, u32c = campaign_batch("acrobot", torch.float32,
+                                                 dev)
         sol, wall, counts = timed_solve(
             more["acrobot"], b32c, x32c, u32c, theta=th32c,
             options=Options(optimality_tolerance=1e-7, max_iterations=20))
@@ -2511,11 +3129,6 @@ def main():
             "the rescue did not take exactly the lanes phase 2 left"
         assert fields["rescue"]["solved"] >= 0.95 * left.numel()
         assert all_finite(sol)
-
-        # ---- residue: the round-5 residue instances in native f64 ------
-        fields, finite = residue_solves(prob, MIXED_ITERATIONS, dev)
-        emit("residue", **fields)
-        assert finite
 
         # ---- solve_hybrid_f32 ------------------------------------------
         th32, b32, x32, u32 = concar_batch(a.batch, torch.float32, dev, a.seed)
@@ -2587,11 +3200,55 @@ def main():
              max_abs_state_difference_to_graph_rollout=drift)
         assert bool(torch.isfinite(sol_k.x).all())
 
-        # ---- the campaign's batches, solved beside the paths above -------
+        # ---- parallel_dist: time sharding and the sharded batch ----------
+        t0 = time.perf_counter()
+        one, par = one_rank_nccl(dev)
+        two, two_ok = two_ranks_gloo(par, bounds, x1, theta, dev)
+        emit("parallel_dist", one_rank_nccl=one, two_ranks_gloo=two,
+             seconds=time.perf_counter() - t0)
+        assert one["equal_to_parallel"] and one["close_to_scan"], \
+            f"parallel_dist: one NCCL rank {one}"
+        assert two_ok, "parallel_dist: two gloo ranks, see the line above"
+
+        # ---- what the further processes solved beside the paths above ---
         done = {}
-        for jobs, beside in zip(BESIDE, besides):
+        for jobs, beside in zip(groups, besides):
             done.update(zip(jobs, finish_beside(beside)))
-        for name, _, _ in CAMPAIGN:
+
+        # ---- serve: the two pools against lockstep on 512 instances -----
+        fields, pool_counts = done[serve_job]
+        emit("serve", **fields)
+        for name, counts in pool_counts.items():
+            record(f"serve/{name}", counts, names64)
+        record("serve/lockstep", {**dict.fromkeys(names64, 0),
+                                  **fields["lockstep"]["launches"]}, names64)
+        for name in ("solve_pool", "solve_pool_resident"):
+            cmp = fields[name]["against_lockstep"]
+            assert cmp["same_status"] >= 0.99 * SERVE_BATCH, \
+                f"{name}: status as lockstep on {cmp['same_status']} only"
+            assert cmp["max_rel_objective_diff"] <= 1e-6, \
+                f"{name}: objective {cmp['max_rel_objective_diff']} " \
+                "from lockstep"
+
+        # ---- residue: the round-5 residue instances in native f64 ------
+        fields, finite = done[("residue", None)]
+        emit("residue", **fields)
+        assert finite
+
+        # ---- parallel_solves: full solves in the parallel mode -----------
+        fields = done[paths_job]
+        emit("parallel_solves", T=prob.T, K=K, **fields)
+        assert fields["seed1"]["lane0_on_golden"], \
+            f"parallel: seed 1 off its golden objective: {fields['seed1']}"
+        assert fields["batch"]["finite"] and fields["batch"]["lane0_on_golden"]
+        assert fields["batch"]["solved"] >= 0.95 * PARALLEL_BATCH, \
+            f"parallel: {fields['batch']['solved']}/{PARALLEL_BATCH} solved"
+        record("parallel_solves/batch",
+               {**dict.fromkeys(names64, 0), **fields["batch"]["launches"]},
+               ("forward_metrics_f64", "forward_trial_f64"))
+
+        # ---- the campaign's batches -------------------------------------
+        for name in CAMPAIGN_LINES:
             for search in ("backtracking", "hybrid"):
                 if (name, search) not in done:
                     continue

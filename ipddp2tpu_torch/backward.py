@@ -124,25 +124,26 @@ def _interleave(even: Tensor, odd: Tensor) -> Tensor:
     return out
 
 
-def _associative_scan(elems):
-    """Inclusive scan of `_affine_comb` along dim 1 of the pair `elems`,
-    by the recursion `jax.lax.associative_scan` runs
+def _associative_scan(fn, elems):
+    """Inclusive scan of the associative `fn` along dim 1 of the tuple of
+    tensors `elems` (`fn(a, b)` takes and returns such tuples, `a` the
+    lower scan index), by the recursion `jax.lax.associative_scan` runs
     (jax/_src/lax/control_flow/loops.py): combine the pairs [0:-1:2] with
     [1::2], scan the reduced sequence, combine its results but the last
     with elems[2::2] (all of them when the length is odd), put elems[0] in
-    front and interleave. Every level is one batched product over
-    [B, ., nx, nx], so the pairs are associated exactly as there."""
+    front and interleave. Every level is one batched call of `fn` over
+    [B, ., ...], so the pairs are associated exactly as there."""
     n = elems[0].shape[1]
     if n < 2:
         return elems
-    reduced = _affine_comb(tuple(e[:, 0:-1:2] for e in elems),
-                           tuple(e[:, 1::2] for e in elems))
-    odd = _associative_scan(reduced)
+    reduced = fn(tuple(e[:, 0:-1:2] for e in elems),
+                 tuple(e[:, 1::2] for e in elems))
+    odd = _associative_scan(fn, reduced)
     if n % 2 == 0:
-        even = _affine_comb(tuple(e[:, :-1] for e in odd),
-                            tuple(e[:, 2::2] for e in elems))
+        even = fn(tuple(e[:, :-1] for e in odd),
+                  tuple(e[:, 2::2] for e in elems))
     else:
-        even = _affine_comb(odd, tuple(e[:, 2::2] for e in elems))
+        even = fn(odd, tuple(e[:, 2::2] for e in elems))
     even = tuple(torch.cat([e[:, :1], r], dim=1)
                  for e, r in zip(elems, even))
     return tuple(_interleave(e, o) for e, o in zip(even, odd))
@@ -199,7 +200,7 @@ def costate_scan(deriv: DerivativeBundle, phi: Tensor,
         return _costate_seq(deriv.fx, r_x, lam_T)
     Ms = torch.flip(deriv.fx.transpose(-1, -2), dims=(1,))
     vs = torch.flip(r_x, dims=(1,))
-    Mc, vc = _associative_scan((Ms, vs))
+    Mc, vc = _associative_scan(_affine_comb, (Ms, vs))
     lam = torch.flip((Mc @ lam_T[:, None, :, None])[..., 0] + vc, dims=(1,))
     return torch.cat([lam, lam_T[:, None]], dim=1)
 
@@ -401,31 +402,14 @@ def sweep_attempts(problem: Problem, deriv: DerivativeBundle, nominal,
     return attempt
 
 
-def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
-                  mu: Tensor, reg_last: Tensor, options: Options, *,
-                  lam=None, second=None) -> BackwardResult:
-    """Full backward pass with the inertia-correction restart ladder.
-
-    `nominal` = (c_relaxed [B,T,nc], il [B,T,nu], iu, phi [B,T,nc], zl, zu)
-    — the accepted-iterate quantities the recursion reads (reference:
-    src/backward_pass.jl:48-49); `mu`, `reg_last` are `[B]`. `lam`/`second`
-    (costates and pre-contracted second-order terms) are computed here if
-    not supplied by the caller.
-    """
-    dtype = nominal[1].dtype
+def regularization_ladder(attempt, mu: Tensor, reg_last: Tensor,
+                          options: Options, dtype):
+    """The inertia-correction restart ladder around any
+    `attempt(reg, delta_c) -> (gains, dL, fail, singular)` of per-lane
+    `[B]` regularizations: the sequential sweep (`sweep_attempts`) and the
+    time-parallel pass (`parallel.priccati`) each build one. Returns (reg,
+    delta_c, gains, dL, fail) of the attempt each lane kept."""
     zero = torch.zeros_like(mu)
-
-    if lam is None:
-        lam = costate_scan(deriv, nominal[3])
-    if second is None and not options.quasi_newton:
-        # cH_phi precomputed with nominal phi; dynamics part needs lam
-        second = deriv.cH_phi
-        if deriv.fH is not None:
-            second = second + torch.einsum("bti,btijk->btjk", lam[:, 1:],
-                                           deriv.fH)
-
-    # what no attempt changes is checked and packed once, before the ladder
-    attempt = sweep_attempts(problem, deriv, nominal, second, mu, options)
 
     def next_reg(reg):
         # IPOPT-style ladder (reference: src/inertia_correction.jl:268-273).
@@ -471,7 +455,44 @@ def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
         dL = merge(new_dL, dL)
         fail = merge(new_fail, fail)
         singular = merge(new_singular, singular)
+    return reg, delta_c, gains, dL, fail
 
-    status = fail.to(torch.int32)
-    return BackwardResult(gains=gains, lam=lam, dL=dL, status=status,
-                          reg=reg, delta_c=delta_c)
+
+def second_order_terms(deriv: DerivativeBundle, lam: Tensor,
+                       options: Options):
+    """The pre-contracted second-order term lam' . d2f + phi . d2c per
+    stage, [B, T, nz, nz], from the bundle's dynamics Hessians; None in
+    quasi-Newton mode."""
+    if options.quasi_newton:
+        return None
+    # cH_phi precomputed with nominal phi; dynamics part needs lam
+    second = deriv.cH_phi
+    if deriv.fH is not None:
+        second = second + torch.einsum("bti,btijk->btjk", lam[:, 1:],
+                                       deriv.fH)
+    return second
+
+
+def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
+                  mu: Tensor, reg_last: Tensor, options: Options, *,
+                  lam=None, second=None) -> BackwardResult:
+    """Full backward pass with the inertia-correction restart ladder.
+
+    `nominal` = (c_relaxed [B,T,nc], il [B,T,nu], iu, phi [B,T,nc], zl, zu)
+    — the accepted-iterate quantities the recursion reads (reference:
+    src/backward_pass.jl:48-49); `mu`, `reg_last` are `[B]`. `lam`/`second`
+    (costates and pre-contracted second-order terms) are computed here if
+    not supplied by the caller.
+    """
+    if lam is None:
+        lam = costate_scan(deriv, nominal[3])
+    if second is None:
+        second = second_order_terms(deriv, lam, options)
+
+    # what no attempt changes is checked and packed once, before the ladder
+    attempt = sweep_attempts(problem, deriv, nominal, second, mu, options)
+    reg, delta_c, gains, dL, fail = regularization_ladder(
+        attempt, mu, reg_last, options, nominal[1].dtype)
+    return BackwardResult(gains=gains, lam=lam, dL=dL,
+                          status=fail.to(torch.int32), reg=reg,
+                          delta_c=delta_c)

@@ -69,8 +69,11 @@ class Options:
                                         # takes <= ~56 bumps from reg_1 with x8 steps
     refine_steps: int = 1               # iterative refinement sweeps on KKT solves
     backward_mode: str = "scan"         # "scan" (sequential sweep, matches
-                                        # the reference); "parallel" is
-                                        # not ported yet
+                                        # the reference); "parallel" (the
+                                        # associative-scan Riccati pass,
+                                        # parallel/priccati.py); "timeshard"
+                                        # (its value scan sharded over a
+                                        # time mesh: solve_timesharded)
     backward_kernel: str = "auto"       # batched backward-sweep dispatch:
                                         # "auto"  = the hand-written CUDA
                                         #           sweep kernel of the
@@ -171,10 +174,10 @@ class Options:
                 "are the CUDA kernels here: 'cuda')")
         if self.ls_speculative < 0:
             raise ValueError(f"ls_speculative={self.ls_speculative}")
-        if self.backward_mode != "scan":
-            raise NotImplementedError(
-                f"backward_mode={self.backward_mode!r}: the associative-scan "
-                "Riccati pass (parallel/) is not ported yet")
+        if self.backward_mode not in ("scan", "parallel", "timeshard"):
+            raise ValueError(
+                f"backward_mode={self.backward_mode!r}: expected 'scan', "
+                "'parallel' or 'timeshard'")
         if self.inertia_method not in ("auto", "ldl", "bk", "eigh"):
             raise ValueError(
                 f"inertia_method={self.inertia_method!r}: expected 'auto', "

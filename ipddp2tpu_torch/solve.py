@@ -23,6 +23,7 @@ in the dual-error scaling denominator (reference: src/solve.jl:130,145).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -438,8 +439,20 @@ def _body(problem: Problem, bounds: Bounds, theta, options: Options,
     else:
         second = deriv.cH_phi + contract_dynamics_hessian(
             problem, theta, s.x, s.u, lam[:, 1:])
-    bw = backward_pass(problem, deriv, nominal, s.mu, s.reg_last,
-                       options, lam=lam, second=second)
+    if options.backward_mode in ("parallel", "timeshard"):
+        from .parallel.priccati import backward_pass_parallel
+        vscan = None
+        if options.backward_mode == "timeshard":
+            from .parallel import timeshard
+            mesh, ax = timeshard.active_time_mesh()
+            vscan = functools.partial(timeshard.value_scan_timesharded,
+                                      mesh=mesh, axis=ax)
+        bw = backward_pass_parallel(problem, deriv, nominal, s.mu,
+                                    s.reg_last, options, lam=lam,
+                                    second=second, value_scan=vscan)
+    else:
+        bw = backward_pass(problem, deriv, nominal, s.mu, s.reg_last,
+                           options, lam=lam, second=second)
     s = s._replace(lam=bw.lam, reg_last=bw.reg)
 
     d_inf = dual_error(problem, deriv, bounds,

@@ -134,3 +134,36 @@ def test_default_solve_follows_jax_default(default_pair):
     np.testing.assert_array_equal(tnp(out.iterations),
                                   np.asarray(ref.iterations))
     np.testing.assert_array_equal(tnp(out.status), np.asarray(ref.status))
+
+
+def test_lane_independent_of_its_batch():
+    """A lane solved alone equals the same lane inside a batch of 8, bit for
+    bit in every field of the solver's state: acrobot at T = 16 (the bk
+    path), its first 8 campaign instances, 5 iterations in float64, lanes 0
+    and 5 alone. The batched solve keeps
+    its lanes independent on the CPU; on a GPU, library products and
+    reductions pick their algorithm by the batch's shape and round
+    differently (`chip_smoke.py --lane-independence`)."""
+    import dataclasses
+
+    from ipddp2tpu_torch import convert
+    from ipddp2tpu_torch.models import acrobot
+    from ipddp2tpu_torch.problem import Bounds
+
+    T = 16
+    prob = dataclasses.replace(acrobot.problem(), T=T)
+    th, b, x, u = acrobot.from_params(
+        convert.params_rows(acrobot.PARAMS)[:8])
+    b, u = Bounds(b.lower[:, :T], b.upper[:, :T]), u[:, :T]
+    opts = P.Options(optimality_tolerance=1e-7, max_iterations=5)
+    _, batch = P.solve(prob, b, x, u, theta=th, options=opts,
+                       return_state=True, device="cpu")
+    assert batch.k.tolist() == [5] * 8
+    for i in (0, 5):
+        lane = lambda t: t[i:i + 1]
+        _, alone = P.solve(prob, Bounds(lane(b.lower), lane(b.upper)),
+                           lane(x), lane(u),
+                           theta=type(th)(*(lane(t) for t in th)),
+                           options=opts, return_state=True, device="cpu")
+        for name, a, c in zip(alone._fields, alone, batch):
+            assert torch.equal(a[0], c[i]), (i, name)

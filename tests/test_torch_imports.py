@@ -36,7 +36,8 @@ def test_port_files_are_found():
             "concar_quad.py", "quadrotor.py", "cartpole_swingup.py",
             "acrobot.py", "cartpole.py", "pushing.py", "solver.py",
             "serve.py", "printing.py", "checkpoint.py",
-            "profiling.py"} <= names
+            "profiling.py", "priccati.py", "timeshard.py", "mesh.py",
+            "multihost.py", "run_benchmarks.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -93,10 +94,17 @@ def test_cuda_source_calls_no_library(path):
 
 
 def test_importing_the_kernel_modules_builds_nothing():
-    """The wrappers' modules import on a machine without `nvcc`; no build
-    directory appears and no library is loaded until a kernel is asked for."""
+    """The wrappers' modules, the parallel layer and the campaign driver
+    import on a machine without `nvcc`; no build directory appears, no
+    library is loaded until a kernel is asked for, and no process group is
+    joined."""
+    import torch.distributed as dist
+    from ipddp2tpu_torch import parallel  # noqa: F401
+    from ipddp2tpu_torch.experiments import run_benchmarks  # noqa: F401
+    from ipddp2tpu_torch.parallel import multihost, timeshard  # noqa: F401
     from ipddp2tpu_torch.ops import build, forward_cuda, probe_chain
     assert not forward_cuda._libs and not probe_chain._libs
+    assert not dist.is_initialized()
     if not torch.cuda.is_available():
         assert not build.BUILD_DIR.exists()
 
@@ -148,3 +156,17 @@ def test_default_device_raises_without_a_gpu():
         solver.solve(torch.ones(1), torch.zeros(2, 1))
     with pytest.raises(RuntimeError, match="CUDA"):
         load_state("no_such_file.npz")
+    from ipddp2tpu_torch.experiments import run_benchmarks
+    from ipddp2tpu_torch.parallel import solve_sharded
+    from ipddp2tpu_torch.parallel.multihost import (initialize_distributed,
+                                                    solve_global)
+    from ipddp2tpu_torch.parallel.timeshard import solve_timesharded
+    for entry in (solve_sharded, solve_timesharded):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(*args, options=Options(max_iterations=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_global(args[0], None, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_distributed(world_size=2, rank=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_benchmarks.main(["double_integrator"])

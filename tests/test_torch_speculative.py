@@ -443,6 +443,7 @@ def test_plain_versions_match_rollout_route_on_tiny_problems(nc, compl):
     dict(ls_speculative=8), dict(ls_speculative=8, ls_spec_continue=True),
     dict(forward_kernel="cuda"), dict(forward_kernel="torch"),
     dict(forward_kernel="xla"), dict(forward_kernel="auto"),
+    dict(backward_mode="parallel"), dict(backward_mode="timeshard"),
 ])
 def test_options_accepted_now(kwargs):
     assert P.Options(**kwargs).validate() is not None
@@ -452,7 +453,7 @@ def test_options_accepted_now(kwargs):
     (dict(forward_kernel="pallas"), ValueError),
     (dict(forward_kernel="pallas_df64"), ValueError),
     (dict(ls_speculative=-1), ValueError),
-    (dict(backward_mode="parallel"), NotImplementedError),
+    (dict(backward_mode="sequential"), ValueError),
 ])
 def test_options_still_refused(kwargs, err):
     with pytest.raises(err):
