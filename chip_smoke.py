@@ -39,10 +39,13 @@ only. Phases, each printing one JSON line:
              of the six further models (their 100 campaign instances, T=100,
              10 iterations): the Bunch-Kaufman sweep against
              `sweep_plain(inertia="bk")` on the three contact models in f64
-             and f32 (flags equal on every lane, gains within BK_TOL; timed),
-             the LDL^T sweep on the three smooth ones and on cartpole's
-             m = 35, a warp an instance (flags equal on every lane, timed;
-             `kernels_by_model`),
+             and f32 (flags equal on every lane, gains within BK_TOL; timed)
+             and on the crafted lanes of both kinds at each model's
+             dimensions (`crafted_inputs`, `crafted_bk_inputs`: a rook chain
+             of several trips, a tie in the column search), the LDL^T sweep
+             on the three smooth ones and on cartpole's m = 35, whole warps
+             an instance (flags equal on every lane, timed; the crafted
+             lanes there too; `kernels_by_model`),
              K3 / K4 with each new model's device functions in f64, timed
              (`forward_by_model`);
   probes     the two chain probes, driven once at their size;
@@ -153,8 +156,12 @@ only. Phases, each printing one JSON line:
              K3 of this tree in turns (parent, change, change, parent): K3's
              time in both types and the hybrid solve with each; and right
              after the kernel checks (`sweep_parent_and_change`, also with
-             --kernels-only) K1 / K2 of that checkout's `backward_sweep.cu`
-             against this tree's on the main shapes, in turns;
+             --kernels-only) every sweep instantiation of that checkout's
+             `backward_sweep.cu`, built with its own geometry, against this
+             tree's on the same inputs (K1 / K2 on the main shapes; the
+             Bunch-Kaufman sweep on the three contact models' and the wide
+             LDL^T sweep on cartpole's campaign states): flags equal on
+             every lane, the gains' largest difference, times in turns;
   lane_independence  with --lane-independence, after the build and instead
              of the rest: pushing's campaign batch (101 lanes) against its
              rows 7, 55, 64, 88 alone, and those against row 7 alone, each
@@ -223,8 +230,12 @@ from ipddp2tpu_torch.ops.forward_cuda import (forward_metrics_cuda,
                                               forward_trial_cuda,
                                               forward_trial_plain,
                                               metrics_geometry)
-from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_LANES, SECTIONS,
-                                               crafted_inputs)
+from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_BK_LANES,
+                                               CRAFTED_LANES, SECTIONS,
+                                               crafted_bk_inputs,
+                                               crafted_inputs, mid_state,
+                                               model_inputs, perturb,
+                                               sweep_inputs)
 from ipddp2tpu_torch.batch import batch_stats
 from ipddp2tpu_torch.parallel.priccati import backward_pass_parallel
 from ipddp2tpu_torch.problem import Bounds, batch_bounds, uniform_bounds
@@ -305,34 +316,6 @@ def concar_batch(batch, dtype, device, seed):
     u0 = concar.initial_controls(dtype, device).expand(
         batch, concar.T, concar.NU)
     return theta, bounds, x1.to(dtype), u0
-
-
-def sweep_inputs(problem, theta, s):
-    """The 21 tensors one backward sweep reads, as the solver's iteration
-    prepares them from a state; reg is the one the state last passed with."""
-    deriv = evaluate_derivatives(problem, theta, s.x, s.u, s.phi)
-    c_rel = relax_constraints(problem, s.c_raw, s.mu)
-    lam = costate_scan(deriv, s.phi)
-    sec = deriv.cH_phi + contract_dynamics_hessian(
-        problem, theta, s.x, s.u, lam[:, 1:])
-    reg = torch.zeros_like(s.mu) if s.reg_last is None else s.reg_last
-    return [deriv.fx, deriv.fu, deriv.lx, deriv.lu, deriv.lxx, deriv.lux,
-            deriv.luu, deriv.cx, deriv.cu, sec, c_rel, s.il, s.iu, s.phi,
-            s.zl, s.zu, deriv.lTx, deriv.lTxx, s.mu, reg,
-            torch.zeros_like(s.mu)]
-
-
-def perturb(args, nu):
-    """Vary (reg, delta_c) over the lanes and make every 16th lane's control
-    Hessian indefinite, so that the inertia test fails there."""
-    args = [a.contiguous().clone() for a in args]
-    B = args[18].shape[0]
-    lane = torch.arange(B, device=args[0].device)
-    args[6][lane % 16 == 3] -= 50.0 * torch.eye(
-        nu, dtype=args[6].dtype, device=args[6].device)
-    args[19] = torch.where(lane % 4 == 1, 8.0 * args[19] + 1e-3, args[19])
-    args[20] = torch.where(lane % 8 == 2, 1e-8, 0.0).to(args[18].dtype)
-    return args
 
 
 def sweep_flops(T, nx, nu, nc, refine):
@@ -2159,16 +2142,6 @@ def two_ranks_gloo(par, bounds, x1, theta, device):
     return fields, ok
 
 
-def mid_state(problem, theta, bounds, x1, u0, iters):
-    """A mid-solve state (non-uniform duals) after `iters` iterations of
-    the default options on the card."""
-    opts = Options(optimality_tolerance=1e-7)
-    s = initialize(problem, theta, bounds, x1, u0, opts)
-    for _ in range(iters):
-        s = iteration(problem, bounds, s, theta, opts)
-    return s
-
-
 def bk_sweep_flops(T, nx, nu, nc):
     """Floating-point operations of one instance's Bunch-Kaufman sweep (a
     multiply-add counts two): the eliminations of the trailing matrix
@@ -2232,6 +2205,28 @@ def check_bk(name, args, dims, atol, time_reps):
         fields.update(kernel_bound(nbytes, B * bk_sweep_flops(
             T, dims["nx"], dims["nu"], dims["nc"]), dtype))
     return fields
+
+
+def check_crafted_bk(name, dims, dtype, device, atol):
+    """The crafted lanes of both kinds through the Bunch-Kaufman kernel
+    (`crafted_inputs`: ties, a NaN diagonal, exact zero pivots;
+    `crafted_bk_inputs`: a rook chain of several trips, a tie in the column
+    search), eight lanes in one ragged batch: flags equal to the plain
+    version's on every lane, gains within BK_TOL on the passing lanes, and
+    the two Bunch-Kaufman lanes passing."""
+    args = [torch.cat([a, b]) for a, b in zip(
+        crafted_inputs(dims["nx"], dims["nu"], dims["nc"], dtype, device),
+        crafted_bk_inputs(dims["nx"], dims["nu"], dims["nc"], dtype,
+                          device))]
+    fields = check_bk(name, args, dims, atol, 0)
+    _, _, fail, sing = backward_sweep_cuda(
+        *args, **dims, refine=1, rtol=1e-6, inertia="bk", atol=atol)
+    assert not fail[len(CRAFTED_LANES):].any(), \
+        f"{name}: a Bunch-Kaufman lane failed: {fail.tolist()}"
+    return dict(lanes=list(CRAFTED_LANES + CRAFTED_BK_LANES),
+                fail=fail.tolist(), singular=sing.tolist(),
+                max_rel_err=fields["max_rel_err"],
+                max_abs_err=fields["max_abs_err"])
 
 
 def mixed_against_pure(data, pure_options, mixed_opts, mixed_kw):
@@ -2549,46 +2544,88 @@ def serve_phase(prob, bounds, x1, u0, theta, K, device=None):
     return fields, {name: r[2] for name, r in runs.items()}
 
 
-def parent_sweep(parent_dir, dims, sweep_main, reps):
-    """K1 / K2 of the parent checkout's `backward_sweep.cu` and of this
-    tree's on the main shapes (`dims`: nx, nu, nc, refine), in turns
-    parent, change, change, parent (graph replay), with their largest
-    difference."""
+def parent_geometry(parent_dir, nx, nu, nc, inertia):
+    """The instances per block that another checkout's wrapper computes for
+    these dimensions (its own rule, asked in a process of its own, where
+    its package is the one imported)."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from ipddp2tpu_torch.ops.backward_cuda import launch_geometry; "
+            "print(launch_geometry(*map(int, sys.argv[2:5]), "
+            "**({'inertia': 'bk'} if sys.argv[5] == 'bk' else {}))"
+            ".instances_per_block)")
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(Path(parent_dir).resolve()),
+         str(nx), str(nu), str(nc), inertia], capture_output=True,
+        text=True, check=True, cwd=str(Path(parent_dir).resolve()))
+    return int(out.stdout.strip().splitlines()[-1])
+
+
+def _differences(pairs, lanes):
+    """Over the `lanes` of each (a, b) pair: the largest |a - b| where both
+    are finite, and the entries where one is finite and the other not or
+    both are infinite and differ."""
+    max_abs, odd = 0.0, 0
+    for a_, b_ in pairs:
+        a_, b_ = a_[lanes], b_[lanes]
+        fin = torch.isfinite(a_) & torch.isfinite(b_)
+        if bool(fin.any()):
+            max_abs = max(max_abs, float((a_ - b_)[fin].abs().max()))
+        odd += int((~fin & ~((a_ == b_) | (a_.isnan() & b_.isnan())))
+                   .sum())
+    return dict(max_abs_diff=max_abs, entries_finiteness_or_inf_differ=odd)
+
+
+def parent_sweep(parent_dir, inertia, dims, inputs, reps):
+    """The sweep of `inertia` ("ldl" or "bk") built from the parent
+    checkout's `backward_sweep.cu` with its own geometry, and this tree's,
+    on the same inputs (`inputs`: the sweep's arguments by type): the
+    flags equal on every lane (asserted), the largest difference of the
+    gains and dL on the lanes that pass in both and on all lanes, and
+    their times in turns parent, change, change, parent (graph replay)."""
     nx, nu, nc = dims["nx"], dims["nu"], dims["nc"]
-    geo = launch_geometry(nx, nu, nc)
+    ipb = parent_geometry(parent_dir, nx, nu, nc, inertia)
     src = Path(parent_dir) / "ipddp2tpu_torch/ops/csrc/backward_sweep.cu"
+    solve = "bk_" if inertia == "bk" else ""
     path = build.finish(build.start(
-        f"backward_sweep_parent_nx{nx}_nu{nu}_nc{nc}", src,
-        defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}",
-                 f"IPB={geo.instances_per_block}"),
+        f"backward_sweep_parent_{solve}nx{nx}_nu{nu}_nc{nc}", src,
+        defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}", f"IPB={ipb}",
+                 *(("SWEEP_BK=1",) if inertia == "bk" else ())),
         depends=tuple(sorted(src.parent.glob("*.cuh")))))
-    key = (nx, nu, nc, "ldl")
-    libs = {"parent": backward_cuda.bind(path, nx, nu, nc),
-            "change": backward_cuda._library(nx, nu, nc)}
-    rtol = Options().kkt_residual_rtol
+    key = (nx, nu, nc, inertia)
+    libs = {"parent": backward_cuda.bind(path, nx, nu, nc, inertia,
+                                         check=False),
+            "change": backward_cuda._library(nx, nu, nc, inertia)}
+    kw = dict(dims, rtol=Options().kkt_residual_rtol, inertia=inertia,
+              atol=Options().inertia_atol)
     diff = {}
-    for dtype, args in sweep_main.items():
+    for dtype, args in inputs.items():
         outs = {}
         for which, lib in libs.items():
             backward_cuda._libs[key] = lib
-            g, dL, fail, sing = backward_sweep_cuda(*args, **dims, rtol=rtol)
-            outs[which] = list(g) + [dL, fail.to(dL.dtype),
-                                     sing.to(dL.dtype)]
+            outs[which] = backward_sweep_cuda(*args, **kw)
         torch.cuda.synchronize()
-        diff[str(dtype)] = max(
-            float((p_ - c_).abs().nan_to_num(posinf=0.0, neginf=0.0).max())
-            for p_, c_ in zip(outs["parent"], outs["change"]))
+        (gp, dLp, fp, sp), (gc, dLc, fc, sc) = outs["parent"], outs["change"]
+        flags = [int((fp != fc).sum()), int((sp != sc).sum())]
+        assert flags == [0, 0], \
+            f"{inertia} sweep against its parent: flags differ on {flags}"
+        pairs = list(zip(list(gp) + [dLp], list(gc) + [dLc]))
+        diff[str(dtype)] = dict(
+            lanes=int(fp.numel()), lanes_failing=int(fp.sum()),
+            flags_differ=flags,
+            passing=_differences(pairs, ~fp & ~fc),
+            all_lanes=_differences(pairs, torch.ones_like(fp)))
     turns = []
     for which in ("parent", "change", "change", "parent"):
         backward_cuda._libs[key] = libs[which]
         turns.append(dict(which=which, ms={
-            str(dtype): graph_ms(lambda: backward_sweep_cuda(
-                *args, **dims, rtol=rtol), reps)
-            for dtype, args in sweep_main.items()}))
+            str(dtype): graph_ms(lambda: backward_sweep_cuda(*args, **kw),
+                                 reps)
+            for dtype, args in inputs.items()}))
     backward_cuda._libs[key] = libs["change"]
-    return dict(max_abs_diff_parent_vs_change=diff, turns=turns)
-
-
+    return dict(parent_instances_per_block=ipb,
+                threads_per_instance=launch_geometry(nx, nu, nc,
+                                                     inertia).lanes,
+                parent_vs_change=diff, turns=turns)
 
 
 def main():
@@ -2613,9 +2650,10 @@ def main():
                          "time and compared bit for bit after each phase "
                          "(no result line)")
     ap.add_argument("--parent", default=None, metavar="DIR",
-                    help="a checkout of the parent commit: time its "
-                         "forward-metrics kernel against this tree's, in "
-                         "turns, and the hybrid solve with each")
+                    help="a checkout of the parent commit (its package): "
+                         "hold its sweep kernels against this tree's and "
+                         "time them in turns, and its forward-metrics "
+                         "kernel with the hybrid solve")
     a = ap.parse_args()
     global LOG
     LOG = a.log
@@ -2874,31 +2912,32 @@ def main():
          iterations=10, seconds=time.perf_counter() - t0)
     atol = opts64.inertia_atol
     bk_fields = {}
+    sweep_models = {}           # (inertia, model, dtype): the inputs above
     for dtype in (torch.float64, torch.float32):
         kname = f"backward_sweep_bk_{sfx[dtype]}"
-        per_model = {}
+        per_model, crafted_bk = {}, {}
         for name in CONTACT:
             th_m, _, s_m = mids[name]
-            args = perturb(sweep_inputs(more[name], cast_tree(th_m, dtype),
-                                        cast_tree(s_m, dtype)),
-                           more[name].nu)
+            args = model_inputs(more[name], th_m, s_m, dtype)
+            sweep_models[("bk", name, dtype)] = args
             per_model[name] = check_bk(f"{kname}/{name}", args,
                                        dims_bk[name], atol, 10)
+            crafted_bk[name] = check_crafted_bk(f"{kname}/crafted/{name}",
+                                                dims_bk[name], dtype, dev,
+                                                atol)
         bk_fields[dtype] = per_model
         emit("kernels", name=kname, dtype=str(dtype), batch=CAMPAIGN_SEEDS,
-             T=100, **per_model)
+             T=100, crafted=crafted_bk, **per_model)
         add_kernel(kname, "ipddp2tpu_torch/ops/csrc/backward_sweep_bk.cuh",
                    "ipddp2tpu/backward.py:219 (XLA scan branch, no Pallas "
                    "kernel)", per_model["acrobot"], per_model["cartpole"],
-                   per_model["pushing"])
+                   per_model["pushing"], *crafted_bk.values())
     # the LDL^T instantiations of the smooth models' dimensions
     ldl_models = {}
     for dtype in (torch.float64, torch.float32):
         for name in ("concar_quad", "quadrotor", "cartpole_swingup"):
             th_m, _, s_m = mids[name]
-            args = perturb(sweep_inputs(more[name], cast_tree(th_m, dtype),
-                                        cast_tree(s_m, dtype)),
-                           more[name].nu)
+            args = model_inputs(more[name], th_m, s_m, dtype)
             ldl_models[f"{name}/{sfx[dtype]}"] = check_kernel(
                 f"backward_sweep_{sfx[dtype]}/{name}", args,
                 dict(dims_of(more[name]), refine=refine), rtol, 0,
@@ -2910,14 +2949,14 @@ def main():
     dims_cp = dict(dims_of(more["cartpole"]), refine=refine)
     for dtype in (torch.float64, torch.float32):
         th_m, _, s_m = mids["cartpole"]
-        args = perturb(sweep_inputs(more["cartpole"], cast_tree(th_m, dtype),
-                                    cast_tree(s_m, dtype)),
-                       more["cartpole"].nu)
-        lane = torch.arange(args[19].shape[0], device=dev)
-        args[19] = torch.where(lane % 4 == 1, args[19] + 1.0, args[19])
+        args = model_inputs(more["cartpole"], th_m, s_m, dtype,
+                            regularize=True)
+        sweep_models[("ldl", "cartpole", dtype)] = args
         kname = f"backward_sweep_{sfx[dtype]}"
         f = check_kernel(f"{kname}/cartpole_ldl", args, dims_cp, rtol, 10,
                          every_lane=True)
+        f["crafted"] = check_crafted(f"{kname}/cartpole_ldl/crafted",
+                                     dims_cp, dtype, dev, rtol)
         f["geometry"] = launch_geometry(**dims_of(more["cartpole"]))._asdict()
         f["geometry"]["smem_bytes"] = {
             str(k): v for k, v in f["geometry"]["smem_bytes"].items()}
@@ -2926,8 +2965,10 @@ def main():
         row["cartpole_ldl"] = {k: f[k] for k in (
             "ms", "ms_eager", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "max_rel_err")}
-        row["max_abs_err"] = max(row["max_abs_err"], f["max_abs_err"])
-        row["max_rel_err"] = max(row["max_rel_err"], f["max_rel_err"])
+        row["max_abs_err"] = max(row["max_abs_err"], f["max_abs_err"],
+                                 f["crafted"]["max_abs_err"])
+        row["max_rel_err"] = max(row["max_rel_err"], f["max_rel_err"],
+                                 f["crafted"]["max_rel_err"])
     emit("kernels_by_model", name="backward_sweep (ldl)",
          max_rel_err=ldl_models, cartpole_ldl=cartpole_ldl)
     # K3 / K4 with each new model's device functions, float64, K = 8
@@ -2970,11 +3011,21 @@ def main():
             assert counts[kname] > 0, f"probe run missed {kname}"
             by_name[kname]["launches"] = counts[kname]
             by_name[kname]["launches_by_path"] = {"probes": counts[kname]}
-    # ---- K1 / K2 of the parent commit against this tree, in turns --------
+    # ---- the sweeps of the parent commit against this tree, in turns ----
     if a.parent:
         emit("sweep_parent_and_change", parent=a.parent, batch=a.batch,
-             T=prob.T, **parent_sweep(a.parent, dict(dims_c, refine=refine),
+             T=prob.T, **parent_sweep(a.parent, "ldl",
+                                      dict(dims_c, refine=refine),
                                       sweep_main, 10))
+        for inertia, name in dict.fromkeys((i, n) for i, n, _ in
+                                           sweep_models):
+            emit("sweep_parent_and_change", parent=a.parent, inertia=inertia,
+                 model=name, batch=CAMPAIGN_SEEDS, T=100,
+                 **parent_sweep(a.parent, inertia,
+                                dict(dims_of(more[name]), refine=refine),
+                                {dt: sweep_models[(inertia, name, dt)]
+                                 for dt in (torch.float64, torch.float32)},
+                                10))
     if a.kernels_only:
         print(json.dumps({"kernels": kernels}), flush=True)
         print("chip_smoke: --kernels-only, stopping before the solves",

@@ -20,8 +20,9 @@ substitution and assembly each take m short steps on every lane instead of
 m*m on one thread, and the stage inputs arrive in shared memory by
 asynchronous copies one stage ahead; see the source's header. For 32 < m
 <= 64 (cartpole's m = 35 with `inertia_method="ldl"`) the same sweep runs
-with a warp an instance, two rows a lane and the working matrix in shared
-memory (`csrc/backward_sweep_wide.cuh`, chosen by the size at build time).
+with `WIDE_WARPS` whole warps an instance, the working matrix in shared
+memory and each elimination's live entries dealt over all of its threads
+(`csrc/backward_sweep_wide.cuh`, chosen by the size at build time).
 `launch_geometry` computes G, the instances per block and the block's shared
 memory here in Python, and refuses m > 64 and blocks above the card's
 227 KB.
@@ -31,9 +32,11 @@ instantiation above serves `inertia_method="ldl"` (and "auto" where it
 resolves to it). The Bunch-Kaufman instantiation (`-DSWEEP_BK=1`,
 `csrc/backward_sweep_bk.cuh`) serves `inertia_method="bk"`, the contact
 models' oracle: rook-pivoted Bunch-Kaufman with the reference's inertia
-count and plain substitution, one warp an instance and its KKT matrix in
-shared memory, so m = nu + nc up to `MAX_KKT_WARP`; its plain version is
-`sweep_plain(..., inertia="bk")`. `launch_geometry(..., inertia=...)` and
+count and plain substitution, one warp an instance up to m = 32 and
+`WIDE_WARPS` above, its KKT matrix in shared memory and each elimination's
+trailing block dealt over the instance's threads (`csrc/sweep_instance.cuh`
+holds what the two share), so m = nu + nc up to `MAX_KKT_WARP`; its plain
+version is `sweep_plain(..., inertia="bk")`. `launch_geometry(..., inertia=...)` and
 the launch counts are per instantiation. The eigh oracle has no kernel.
 
 Prepare and launch are two steps. Of the 21 inputs only `reg` and `delta_c`
@@ -74,9 +77,12 @@ _N_PTRS = 33
 # the largest group of lanes that can own an instance (one warp): the LDL^T
 # sweep of a larger m deals its rows over a warp's lanes
 MAX_KKT = 32
-# the largest m of both instantiations when a warp owns an instance and its
+# the largest m of both instantiations when warps own an instance and its
 # matrix lies in shared memory; beyond it a block would not fit anyway
 MAX_KKT_WARP = 64
+# warps an instance above m = 32, by instantiation (see `launch_geometry`;
+# chosen by timing 1, 2 and 4 at cartpole's m = 35 in turns on the H100)
+WIDE_WARPS = {"ldl": 4, "bk": 4}
 # the inputs that stay the same over the attempts of one backward pass
 _FIXED = ("fx", "fu", "lx", "lu", "lxx", "lux", "luu", "cx", "cu", "sec",
           "c_rel", "il", "iu", "phi", "zl", "zu", "lTx", "lTxx", "mu")
@@ -103,49 +109,64 @@ def _refuse_inertia(inertia: str):
 class Geometry(NamedTuple):
     """How a sweep is laid over the card for one (nx, nu, nc)."""
 
-    lanes: int                  # G: lanes of a warp that own one instance
+    lanes: int                  # G: threads that own one instance
     instances_per_block: int
     threads: int                # per block
     smem_bytes: dict            # per block, by torch dtype
 
 
 def _instance_values(nx: int, nu: int, nc: int, itemsize: int,
-                     inertia: str = "ldl") -> int:
-    """Values of shared memory per instance: the layout `Lay<T>` (ldl) or
-    `LayBK<T>` (bk) of the source, every run of the two stage buffers padded
-    to 16 bytes."""
+                     inertia: str = "ldl", warps: int = 1) -> int:
+    """Values of shared memory per instance: the layout `Lay<T>` (ldl, m <=
+    32), `LayW<T>` (ldl, m > 32) or `LayBK<T>` (bk) of the source, every run
+    of the two stage buffers padded to 16 bytes; with more than one warp an
+    instance, 32 bytes a warp of reduction buffers besides."""
     a = 16 // itemsize
     up = lambda n: (n + a - 1) // a * a
     m, nk, nz = nu + nc, nx + 1, nx + nu
     runs = (nx * nx, nx * nu, nx, nu, nx * nx, nu * nx, nu * nu, nc * nx,
             nc * nu, nz * nz, nc, nu, nu, nc, nu, nu)
     stage = sum(up(n) for n in runs)
+    red = 32 * warps // itemsize if warps > 1 else 0
+    ap = m | 1                  # odd row stride of an m x m matrix
     if inertia == "bk":
-        # A [m][m+1], rhs / forward / backward / solution [m][nk], C, Vxx,
-        # Vx, Vx', D, e, perm, 4 m multipliers
-        rest = (m * (m + 1) + 4 * m * nk + 2 * nx * nx + 2 * nx + 3 * m
-                + 4 * m)
-    elif m > MAX_KKT:
-        # `LayW<T>`: K and the working copy [m][m+1], L [m][m+1], rhs and
-        # solution [m][nk], C, Vxx, Vx, Vx', pivot order
-        rest = (3 * m * (m + 1) + 2 * m * nk + 2 * nx * nx + 2 * nx + m)
-    else:
-        lanes = 1 << max(m - 1, 0).bit_length()
-        rest = (m * (m + 1) + m * (lanes + 1) + 2 * m * nk + 2 * nx * nx
-                + 2 * nx + m)
+        # A [m][ap], rhs / pivot-order rhs / solution [m][nk], C, Vxx, Vx,
+        # Vx', D, e, perm, 4 m multipliers
+        rest = (m * ap + 3 * m * nk + 2 * nx * nx + 2 * nx + 3 * m + 4 * m)
+        return up(up(2 * stage + rest) + red)
+    if m > MAX_KKT:
+        # `LayW<T>`: K and the working copy [m][ap], L [m][ap], rhs,
+        # forward-substituted rhs, solution, residuals [m][nk], C, Vxx, Vx,
+        # Vx', and 7 m: diagonal, multipliers, pivot order, each row's step
+        # and pivot, the live rows and their places
+        rest = (3 * m * ap + 4 * m * nk + 2 * nx * nx + 2 * nx + 7 * m)
+        return up(up(2 * stage + rest) + red)
+    lanes = 1 << max(m - 1, 0).bit_length()
+    rest = (m * (m + 1) + m * (lanes + 1) + 2 * m * nk + 2 * nx * nx
+            + 2 * nx + m)
     return up(2 * stage + rest)
 
 
-def launch_geometry(nx: int, nu: int, nc: int,
-                    inertia: str = "ldl") -> Geometry:
-    """G, instances per block, threads and shared-memory bytes per block of
-    the instantiation that serves `inertia` ("ldl" or "bk"). A block is 4
-    warps where its float64 shared memory fits the card's 227 KB, else 2,
-    else 1. The LDL^T kernel: G the smallest power of two >= m = nu + nc
-    up to m = 32, G = 32 (a warp an instance, two rows a lane) for 32 < m.
-    The Bunch-Kaufman kernel: G = 32. Both take m up to `MAX_KKT_WARP` and
-    raise ValueError above it, and for dimensions whose smallest block does
-    not fit."""
+def warps_per_instance(nu: int, nc: int, inertia: str = "ldl") -> int:
+    """Warps that own an instance by default: one up to m = nu + nc = 32
+    (the LDL^T kernel's group is then at most a warp; two for the
+    Bunch-Kaufman kernel timed the same at m = 15 and 17 on the H100),
+    `WIDE_WARPS` above."""
+    return WIDE_WARPS[inertia] if nu + nc > MAX_KKT else 1
+
+
+def launch_geometry(nx: int, nu: int, nc: int, inertia: str = "ldl",
+                    warps: int = None) -> Geometry:
+    """Threads per instance (`lanes`), instances per block, threads and
+    shared-memory bytes per block of the instantiation that serves
+    `inertia` ("ldl" or "bk"). The LDL^T kernel up to m = nu + nc = 32: G
+    lanes, the smallest power of two >= m, and a block of 4 warps where its
+    float64 shared memory fits the card's 227 KB, else 2, else 1. The
+    Bunch-Kaufman kernel, and the LDL^T kernel above m = 32: `warps` whole
+    warps an instance (default `warps_per_instance`; 1, 2 or 4), and as
+    many instances as fill a block of 4 warps, else 2, else 1, where it
+    fits. Both take m up to `MAX_KKT_WARP` and raise ValueError above it,
+    and for dimensions whose smallest block does not fit."""
     _refuse_inertia(inertia)
     m = nu + nc
     if m < 1 or min(nx, nu) < 1 or nc < 0:
@@ -154,41 +175,54 @@ def launch_geometry(nx: int, nu: int, nc: int,
     if m > MAX_KKT_WARP:
         raise ValueError(
             f"backward sweep kernel ({inertia}): KKT size nu + nc = {m} > "
-            f"{MAX_KKT_WARP}: a warp owns an instance and its matrix lies in "
-            'shared memory; use backward_kernel="torch" for this problem')
-    if inertia == "bk" or m > MAX_KKT:
-        lanes = 32
-    else:
-        lanes = 1 << (m - 1).bit_length()
-    per_instance = {dt: _instance_values(nx, nu, nc, size, inertia) * size
+            f"{MAX_KKT_WARP}: at most 4 warps own an instance and its matrix "
+            'lies in shared memory; use backward_kernel="torch" for this '
+            "problem")
+    wide = inertia == "bk" or m > MAX_KKT
+    if warps is None:
+        warps = warps_per_instance(nu, nc, inertia) if wide else 1
+    if warps not in (1, 2, 4) or (warps > 1 and not wide):
+        raise ValueError(f"backward sweep kernel ({inertia}): {warps} warps "
+                         f"an instance at m = {m} (1, 2 or 4; the LDL^T "
+                         f"sweep up to m = {MAX_KKT} takes a group of lanes)")
+    lanes = 32 * warps if wide else 1 << (m - 1).bit_length()
+    per_instance = {dt: _instance_values(nx, nu, nc, size, inertia, warps)
+                    * size
                     for dt, size in ((torch.float32, 4), (torch.float64, 8))}
-    for warps in (4, 2, 1):
-        ipb = warps * 32 // lanes
+    for block_warps in (4, 2, 1):
+        if block_warps * 32 < lanes:
+            continue
+        ipb = block_warps * 32 // lanes
         smem = {dt: v * ipb for dt, v in per_instance.items()}
         if smem[torch.float64] <= SMEM_LIMIT:
             return Geometry(lanes, ipb, ipb * lanes, smem)
     raise ValueError(
         f"backward sweep kernel: nx={nx}, nu={nu}, nc={nc} needs "
-        f"{smem[torch.float64]} bytes of shared memory for one warp of "
-        f"instances, the card has {SMEM_LIMIT} (227 KB) a block")
+        f"{smem[torch.float64]} bytes of shared memory for one instance, "
+        f"the card has {SMEM_LIMIT} (227 KB) a block")
 
 
 def start_build(nx: int, nu: int, nc: int, verbose: bool = False,
-                defines=(), inertia: str = "ldl"):
+                defines=(), inertia: str = "ldl", warps: int = None):
     """Start `nvcc` for one (nx, nu, nc) and stage solve without waiting;
     `build.finish` waits. Several builds started together run in parallel.
-    `defines` are further `-D` flags (a variant of the source, built beside
-    the usual library under a name of its own)."""
-    geo = launch_geometry(nx, nu, nc, inertia)
+    `defines` are further `-D` flags and `warps` the warps an instance (a
+    variant of the source, built beside the usual library under a name of
+    its own)."""
+    geo = launch_geometry(nx, nu, nc, inertia, warps)
+    wpi = geo.lanes // 32 if inertia == "bk" or nu + nc > MAX_KKT else 0
     tag = "".join("_" + d.replace("=", "") for d in defines)
+    tag += f"_w{wpi}" if warps is not None else ""
     solve = "bk_" if inertia == "bk" else ""
     bk = ("SWEEP_BK=1",) if inertia == "bk" else ()
     return _build.start(f"backward_sweep_{solve}nx{nx}_nu{nu}_nc{nc}{tag}",
                         SOURCE,
                         defines=(f"NX={nx}", f"NU={nu}", f"NC={nc}",
                                  f"IPB={geo.instances_per_block}", *bk,
+                                 *((f"WPI={wpi}",) if wpi else ()),
                                  *defines),
                         depends=(_build.CSRC / "async_copy.cuh",
+                                 _build.CSRC / "sweep_instance.cuh",
                                  _build.CSRC / "backward_sweep_bk.cuh",
                                  _build.CSRC / "backward_sweep_wide.cuh"),
                         verbose=verbose)
@@ -201,17 +235,20 @@ def build(dims, verbose: bool = False):
                               for d in dims], verbose=verbose)
 
 
-def _load(nx: int, nu: int, nc: int, defines=(), inertia: str = "ldl"):
+def _load(nx: int, nu: int, nc: int, defines=(), inertia: str = "ldl",
+          warps: int = None):
     path = _build.finish(start_build(nx, nu, nc, defines=defines,
-                                     inertia=inertia))
-    return bind(path, nx, nu, nc, inertia)
+                                     inertia=inertia, warps=warps))
+    return bind(path, nx, nu, nc, inertia, warps)
 
 
-def bind(path, nx: int, nu: int, nc: int, inertia: str = "ldl"):
+def bind(path, nx: int, nu: int, nc: int, inertia: str = "ldl",
+         warps: int = None, check: bool = True):
     """Open a built sweep library and check that it was built for these
-    dimensions and the geometry `launch_geometry` computes (also a library
-    built from another checkout's source, to time it against this one)."""
-    geo = launch_geometry(nx, nu, nc, inertia)
+    dimensions and the geometry `launch_geometry` computes. With `check`
+    False (a library built from another checkout's source, to time it
+    against this one) only the dimensions are checked: its geometry is its
+    own, and the C interface is the same."""
     lib = ctypes.CDLL(str(path))
     for name in _FUNCTION_OF.values():
         fn = getattr(lib, name)
@@ -223,10 +260,12 @@ def bind(path, nx: int, nu: int, nc: int, inertia: str = "ldl"):
     lib.backward_sweep_dims.argtypes = [ctypes.POINTER(ctypes.c_int)]
     built = (ctypes.c_int * 8)()
     lib.backward_sweep_dims(built)
+    built = list(built)
+    geo = launch_geometry(nx, nu, nc, inertia, warps)
     want = [nx, nu, nc, geo.lanes, geo.instances_per_block, geo.threads,
             geo.smem_bytes[torch.float32], geo.smem_bytes[torch.float64]]
-    if list(built) != want:
-        raise RuntimeError(f"{path.name} was built as {list(built)}, "
+    if built[:3] != want[:3] or (check and built != want):
+        raise RuntimeError(f"{path.name} was built as {built}, "
                            f"the wrapper computed {want}")
     return lib
 
@@ -238,12 +277,15 @@ def _library(nx: int, nu: int, nc: int, inertia: str = "ldl"):
     return _libs[key]
 
 
-def use_variant(nx: int, nu: int, nc: int, defines=()):
-    """Make the LDL^T library built with the further `-D` flags `defines`
-    the one that the wrapper launches for these dimensions from now on (no
-    flags: the usual one). For `profile_sweep`, which times variants of the
-    source in turns inside one process."""
-    _libs[(nx, nu, nc, "ldl")] = _load(nx, nu, nc, tuple(defines))
+def use_variant(nx: int, nu: int, nc: int, defines=(), inertia: str = "ldl",
+                warps: int = None):
+    """Make the library of `inertia` built with the further `-D` flags
+    `defines` and `warps` warps an instance the one that the wrapper
+    launches for these dimensions from now on (no flags, no warps: the
+    usual one). For `profile_sweep` and `chip_smoke.py`, which time
+    variants of the source in turns inside one process."""
+    _libs[(nx, nu, nc, inertia)] = _load(nx, nu, nc, tuple(defines),
+                                         inertia, warps)
 
 
 def _expected_shapes(B, T, nx, nu, nc):

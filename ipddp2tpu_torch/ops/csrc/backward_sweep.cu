@@ -111,11 +111,13 @@
 // `backward_sweep_f32`, `backward_sweep_f64`, `backward_sweep_dims`.
 //
 // -DSWEEP_BK=1 builds the other stage solve instead: rook Bunch-Kaufman with
-// the reference's inertia count and plain substitution, a warp an instance,
-// for the contact models (backward_sweep_bk.cuh, which says what it
-// replaces and what bounds it). Without it, and for m <= 32, the
+// the reference's inertia count and plain substitution, -DWPI whole warps
+// an instance, for the contact models (backward_sweep_bk.cuh, which says
+// what it replaces and what bounds it). Without it, and for m <= 32, the
 // preprocessed kernel is the LDL^T one above, unchanged; for 32 < m <= 64
-// it is the LDL^T sweep of backward_sweep_wide.cuh.
+// it is the LDL^T sweep of backward_sweep_wide.cuh (-DWPI warps). What the
+// two share is in sweep_instance.cuh. -DSWEEP_PROF_FINE (see PROF) splits
+// their factorization's clocks by step instead of the stage's by section.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -136,15 +138,20 @@ constexpr int pow2_at_least(int n) {
     while (g < n) g *= 2;
     return g;
 }
-#if SWEEP_BK
-// the Bunch-Kaufman instantiation: a warp owns an instance (backward_sweep_bk.cuh)
-constexpr int G = 32;
-static_assert(M >= 1, "the KKT size must be at least 1");
-#elif (NU + NC) > 32
-// the LDL^T sweep for 32 < m <= 64: a warp owns an instance
-// (backward_sweep_wide.cuh)
+#if SWEEP_BK || (NU + NC) > 32
+#if !SWEEP_BK
+// the LDL^T sweep for 32 < m <= 64 (backward_sweep_wide.cuh)
 #define SWEEP_WIDE 1
-constexpr int G = 32;
+#endif
+// the Bunch-Kaufman instantiation (backward_sweep_bk.cuh) and the wide LDL^T
+// sweep: WPI whole warps own an instance (1, 2 or 4; the wrapper takes 1 up
+// to m = 32 and WIDE_WARPS above)
+#ifndef WPI
+#define WPI 1
+#endif
+constexpr int G = 32 * WPI;
+static_assert(M >= 1, "the KKT size must be at least 1");
+static_assert(WPI == 1 || WPI == 2 || WPI == 4, "WPI is 1, 2 or 4");
 #else
 constexpr int G = pow2_at_least(M);          // lanes that own one instance
 static_assert(M >= 1 && G <= 32, "the KKT size must be 1..32");
@@ -220,13 +227,25 @@ struct SweepArgs {
 // block adds the clock cycles its warp spent in each section of the stage
 // loop: prof[0..4] = assemble, factor, solve, gains, value. The wait for the
 // stage's asynchronous copies counts as assembly.
-#define PROF(slot)                                                    \
+// Built with -DSWEEP_PROF_FINE (the Bunch-Kaufman and wide kernels), the
+// slots split the factorization instead: column search, rook trips,
+// interchanges, multipliers, trailing update (PROF_FINE); the other
+// sections are not counted.
+#define PROF_ADD(slot)                                                \
     if (a.prof != nullptr && threadIdx.x == 0) {                      \
         const long long now = clock64();                              \
         atomicAdd((unsigned long long*)&a.prof[slot],                 \
                   (unsigned long long)(now - tick));                  \
         tick = now;                                                   \
     }
+#if SWEEP_PROF_FINE
+#define PROF(slot)                                                    \
+    if (a.prof != nullptr && threadIdx.x == 0) tick = clock64();
+#define PROF_FINE(slot) PROF_ADD(slot)
+#else
+#define PROF(slot) PROF_ADD(slot)
+#define PROF_FINE(slot)
+#endif
 
 template <typename T>
 __device__ __forceinline__ bool finite_(T v) { return isfinite(v); }
@@ -720,6 +739,9 @@ backward_sweep_kernel(const SweepArgs a, const int B, const int Tn,
     }
 }
 
+#if SWEEP_BK || SWEEP_WIDE
+#include "sweep_instance.cuh"
+#endif
 #if SWEEP_BK
 #include "backward_sweep_bk.cuh"
 #define SWEEP_KERNEL backward_sweep_bk_kernel

@@ -177,6 +177,46 @@ def test_sweep_plain_matches_jax_run_pass(method):
     np.testing.assert_allclose(tnp(dL)[ok], np.asarray(rdL)[ok], rtol=rtol)
 
 
+def test_bk_sweep_on_crafted_lanes_matches_jax():
+    """The crafted lanes of `ops/profile_sweep` (ties, a NaN diagonal,
+    exact zero pivots; a rook chain of several trips, a tie in the column
+    search) at acrobot's dimensions, T = 4, through `sweep_plain(inertia=
+    "bk")` and through the JAX package's bk sweep (`_run_pass`'s scan
+    branch) on the same stage tensors: `fail` and `singular` equal on every
+    lane, the passing lanes' gains within this file's bk tolerance. This is
+    what the card's crafted check holds the Bunch-Kaufman kernel to."""
+    from ipddp2tpu_torch.ops.profile_sweep import (crafted_bk_inputs,
+                                                   crafted_inputs)
+    nx, nu, nc = jac.NX, jac.NU, jac.NC
+    args = [torch.cat([a, b]) for a, b in zip(
+        crafted_inputs(nx, nu, nc, torch.float64, "cpu"),
+        crafted_bk_inputs(nx, nu, nc, torch.float64, "cpu"))]
+    gains, dL, fail, sing = pb.sweep_plain(
+        *args, nx=nx, nu=nu, nc=nc, refine=1, rtol=1e-6, inertia="bk",
+        atol=1e-12)
+    (fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec, c, il, iu, phi, zl, zu,
+     lTx, lTxx, mu, reg, dc) = (jnp.asarray(tnp(a)) for a in args)
+    deriv = jd.DerivativeBundle(fx=fx, fu=fu, fH=None, lx=lx, lu=lu, lxx=lxx,
+                                lux=lux, luu=luu, cx=cx, cu=cu, cH_phi=None,
+                                lTx=lTx, lTxx=lTxx)
+    jp = types.SimpleNamespace(T=fx.shape[1], nx=nx, nu=nu, nc=nc)
+    opts = J.Options(inertia_method="bk")
+    run = jax.jit(jax.vmap(lambda d, n, m, r, q, s: jb._run_pass(
+        jp, d, n, m, r, q, opts, second=s)))
+    rgains, rdL, rfail, rsing = run(deriv, (c, il, iu, phi, zl, zu), mu,
+                                    reg, dc, sec)
+    np.testing.assert_array_equal(tnp(fail), np.asarray(rfail))
+    np.testing.assert_array_equal(tnp(sing), np.asarray(rsing))
+    ok = ~np.asarray(rfail)
+    assert ok.sum() == 5 and np.asarray(rsing).sum() == 2, np.asarray(rfail)
+    for a, b, name in zip(gains, rgains, pb.Gains._fields):
+        b = np.asarray(b)[ok]
+        np.testing.assert_allclose(tnp(a)[ok], b, rtol=1e-10,
+                                   atol=1e-10 * np.abs(b).max(),
+                                   err_msg=name)
+    np.testing.assert_allclose(tnp(dL)[ok], np.asarray(rdL)[ok], rtol=1e-10)
+
+
 def test_routing_of_the_sweep():
     """ldl and bk take their kernel on a GPU, eigh never; the kernel route
     raises for CPU tensors and for eigh; auto resolves to bk on the contact
@@ -220,16 +260,21 @@ def test_routing_of_the_sweep():
 
 
 def test_bk_launch_geometry():
-    """A warp an instance for acrobot (m = 15), pushing (17) and cartpole
-    (35), four of them a block, their shared memory (the source's
-    `LayBK<T>`) within the card's 227 KB. The LDL^T kernel takes cartpole's
-    m = 35 as a warp an instance too (the source's `LayW<T>`: two of them a
-    block in double); both refuse m = 65, also for a build."""
+    """One warp an instance for acrobot (m = 15) and pushing (17), four of
+    them a block; `WIDE_WARPS` (4) warps an instance for cartpole (35), one
+    a block, in both instantiations. The shared memory follows the sources'
+    `LayBK<T>` / `LayW<T>` (the m x m matrices with the odd row stride m |
+    1, 32 bytes a warp of reduction buffers above one warp) within the
+    card's 227 KB; 1, 2 or 4 warps by `warps=` (the LDL^T sweep more than
+    one only above m = 32); both refuse m = 65, also for a build."""
     geo = backward_cuda.launch_geometry
+    assert backward_cuda.WIDE_WARPS == {"ldl": 4, "bk": 4}
     for nx, nu, nc in ((4, 9, 6), (4, 11, 6), (4, 21, 14)):
         g = geo(nx, nu, nc, inertia="bk")
         m, nk = nu + nc, nx + 1
-        assert (g.lanes, g.instances_per_block, g.threads) == (32, 4, 128)
+        warps = 4 if m > 32 else 1
+        assert (g.lanes, g.instances_per_block, g.threads) == \
+            (32 * warps, 4 // warps, 128)
         for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
             a = 16 // size
             up = lambda v: -(-v // a) * a
@@ -237,19 +282,31 @@ def test_bk_launch_geometry():
             stage = sum(up(v) for v in (
                 nx * nx, nx * nu, nx, nu, nx * nx, nu * nx, nu * nu,
                 nc * nx, nc * nu, nz * nz, nc, nu, nu, nc, nu, nu))
-            rest = (m * (m + 1) + 4 * m * nk + 2 * nx * nx + 2 * nx
+            rest = (m * (m | 1) + 3 * m * nk + 2 * nx * nx + 2 * nx
                     + 7 * m)
-            assert g.smem_bytes[dtype] == 4 * up(2 * stage + rest) * size
+            red = 32 * warps // size if warps > 1 else 0
+            assert g.smem_bytes[dtype] == \
+                g.instances_per_block * up(up(2 * stage + rest) + red) * size
         assert g.smem_bytes[torch.float64] <= 232448
-    # cartpole: 46,128 bytes an instance in double (35 x 36 of them A)
-    assert geo(4, 21, 14, inertia="bk").smem_bytes[torch.float64] \
-        == 4 * 46128
+    # cartpole: 44,576 bytes an instance in double (35 x 35 of them A)
+    assert geo(4, 21, 14, inertia="bk").smem_bytes[torch.float64] == 44576
+    # the warps an instance, in turns on the card: 1 and 2 fit 4 and 2
+    # instances a block
+    assert geo(4, 21, 14, inertia="bk", warps=1)[:3] == (32, 4, 128)
+    assert geo(4, 21, 14, inertia="bk", warps=2)[:3] == (64, 2, 128)
+    # more than a warp at m <= 32 too (timed in turns on the card), but
+    # not for the LDL^T sweep's group of lanes; 1, 2 or 4 only
+    assert geo(4, 9, 6, inertia="bk", warps=2)[:3] == (64, 2, 128)
+    for bad in ((4, 21, 14, "bk", 3), (4, 10, 4, "ldl", 2)):
+        with pytest.raises(ValueError, match="warps an instance"):
+            geo(*bad[:3], inertia=bad[3], warps=bad[4])
     # the LDL^T sweep at cartpole's m = 35: K, its working copy and L
-    # [35][36] each, rhs and X [35][5], C, Vxx, Vx, Vx', the pivot order
+    # [35][35] each, rhs, forward-substituted rhs, X and residuals [35][5],
+    # C, Vxx, Vx, Vx', 7 x 35 of pivot bookkeeping, the reduction buffers
     g = geo(4, 21, 14)
-    assert (g.lanes, g.instances_per_block, g.threads) == (32, 2, 64)
-    assert g.smem_bytes == {torch.float32: 2 * 31072,
-                            torch.float64: 2 * 61808}
+    assert (g.lanes, g.instances_per_block, g.threads) == (128, 1, 128)
+    assert g.smem_bytes == {torch.float32: 33008, torch.float64: 65568}
+    assert geo(4, 21, 14, warps=1)[:3] == (32, 2, 64)
     for inertia in ("ldl", "bk"):
         with pytest.raises(ValueError, match="65 > 64"):
             geo(4, 21, 44, inertia=inertia)
