@@ -39,8 +39,10 @@ only. Phases, each printing one JSON line:
              of the six further models (their 100 campaign instances, T=100,
              10 iterations): the Bunch-Kaufman sweep against
              `sweep_plain(inertia="bk")` on the three contact models in f64
-             and f32 (flags equal on every lane, gains within BK_TOL; timed)
-             and on the crafted lanes of both kinds at each model's
+             and f32 (flags equal on every lane, gains within BK_TOL; timed),
+             at concar's m = 14 on mid-solve states of the 24 residue
+             instances (the shape of `residue_levers`' `bk` lever), and on
+             the crafted lanes of both kinds at each model's
              dimensions (`crafted_inputs`, `crafted_bk_inputs`: a rook chain
              of several trips, a tie in the column search), the LDL^T sweep
              on the three smooth ones and on cartpole's m = 35, whole warps
@@ -97,6 +99,25 @@ only. Phases, each printing one JSON line:
              lanes with a 120-iteration f32 phase in chunks of 5, the stall
              freeze and the adaptive K: checks that the rescue takes exactly
              the lanes phase 2 left unconverged and solves >= 95 % of them;
+  independent_check  (in a further process, while the campaign runs)
+             `ipddp2tpu_torch.experiments.independent_check.main` on the
+             double integrator (cold and warm starts) and on the first two
+             committed instances of concar and acrobot (warm starts):
+             solved on the card, SLSQP on the host; its lines read back by
+             the port's `slsqp_table`; fails unless every certificate
+             holds, the double integrator's cold start lands in our basin
+             and each "ours" objective is within 1e-4 of its row in
+             `experiments/results/<file>`; K2 and the bk sweep launched;
+  residue_levers  (in a further process, with `profile_iteration`) the
+             levers base and bk of `ipddp2tpu_torch.scripts.residue_levers`
+             on the residue instances of seeds 1002 and 1004 (chunks of 50,
+             1000 iterations): the script's lines, solved beside the
+             `residue` phase's pure f64 solve; fails on non-finite
+             iterates or the bk sweep (m = 14) not launched;
+  profile_iteration  `ipddp2tpu_torch.scripts.profile_iteration` on the
+             card: ms per piece of one iteration on concar's seed-1
+             iterate (B = 1, T = 100, CUDA events, 20 repetitions); fails
+             on a non-finite piece or K2 not launched;
   residue    (in a further process, while the campaign runs) the 24
              round-5 residue instances (the
              port's data file) through the mixed solve and from scratch in
@@ -136,12 +157,13 @@ only. Phases, each printing one JSON line:
              than 95 solved, or a path's kernel not launched. Right after
              the main path the batches are solved in three further
              processes on the same card (pushing's alone; the other seven
-             in two groups), and `serve`, `residue` and `parallel_solves`
-             each in one more, while this one runs `facade`, acrobot's
-             float32 smoke, `mixed_rescue`, the four older paths and
-             `parallel_dist`; the further processes' lines come after
-             those paths. The seconds of all of these are taken with seven
-             processes running;
+             in two groups), `serve`, `residue`, `parallel_solves` and
+             `independent_check` each in one more and `residue_levers` with
+             `profile_iteration` in another, while this one runs
+             `facade`, acrobot's float32 smoke, `mixed_rescue`, the four
+             older paths and `parallel_dist`; the further processes' lines
+             come after those paths. The seconds of all of these are taken
+             with nine processes running;
   turns      with --turns: the flat pure-f64 solve and the mixed solve in
              turns on the same batch (pure, mixed, mixed, pure);
   solve_hybrid_f32  30 iterations of the same in float32;
@@ -216,7 +238,8 @@ from ipddp2tpu_torch.forward import (forward_pass, forward_pass_hybrid,
                                      rollout)
 from ipddp2tpu_torch.mixed import _cast_state
 from ipddp2tpu_torch import convert
-from ipddp2tpu_torch.experiments import run_benchmarks
+from ipddp2tpu_torch.experiments import (independent_check, run_benchmarks,
+                                         slsqp_table)
 from ipddp2tpu_torch.models import (acrobot, cartpole, cartpole_swingup,
                                     concar, concar_quad, double_integrator,
                                     pushing, quadrotor)
@@ -239,6 +262,7 @@ from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_BK_LANES,
 from ipddp2tpu_torch.batch import batch_stats
 from ipddp2tpu_torch.parallel.priccati import backward_pass_parallel
 from ipddp2tpu_torch.problem import Bounds, batch_bounds, uniform_bounds
+from ipddp2tpu_torch.scripts import profile_iteration, residue_levers
 from ipddp2tpu_torch.serve import solve_pool_resident
 from ipddp2tpu_torch.utils import load_state, profiling, save_state
 from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
@@ -1276,6 +1300,113 @@ def residue_solves(problem, max_iterations, device):
     return fields, finite
 
 
+# ---- the experiment layer: independent check, residue levers, profile ----
+
+# `independent_check.main`'s runs: the double integrator with its cold and
+# warm starts, and the warm starts of concar's and acrobot's first two
+# committed instances (the JAX package's logs: a warm start of concar 5-19
+# s, of acrobot 8-30 s; a cold start of concar 85-735 s, left out)
+CHECK_RUNS = (["--problems", "double_integrator"],
+              ["--problems", "concar", "acrobot_contact", "--seeds", "2",
+               "--warm-only"])
+# the (problem, seed) lines the runs must print
+CHECK_ROWS = {("double_integrator", 1), ("concar", 1), ("concar", 2),
+              ("acrobot_contact", 1), ("acrobot_contact", 2)}
+# "ours" against the JAX campaign's results file: relative tolerance
+CHECK_RTOL = 1e-4
+# the residue seeds and the levers of the `residue_levers` phase
+LEVER_SEEDS = (1002, 1004)
+LEVERS = ("base", "bk")
+PROFILE_REPS = 20
+
+
+def residue_mid_state(problem, device, iterations=10):
+    """(theta, state) of the 24 residue instances after `iterations`
+    iterations of the default options."""
+    _, _, theta, f_lim, tau_lim, x1 = concar.residue_instances(device)
+    u0 = concar.initial_controls(device=device).expand(
+        x1.shape[0], problem.T, problem.nu)
+    return theta, mid_state(problem, theta, concar.bounds(
+        f_lim, tau_lim, device=device), x1, u0, iterations, device=device)
+
+
+def independent_check_phase(device):
+    """`independent_check.main` on each of CHECK_RUNS (solves on `device`,
+    SLSQP on the host), its standard output captured and read back through
+    the port's `slsqp_table`. Returns (fields, launch counts)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        codes = [independent_check.main(run + ["--device", device.type])
+                 for run in CHECK_RUNS]
+    lines = out.getvalue().splitlines()
+    rows = [r for r in map(slsqp_table.parse_line, lines) if r]
+    counts = read_counts()
+    return dict(seconds=time.perf_counter() - t0, exit_codes=codes,
+                lines=[ln for ln in lines if ln.strip()], rows=rows,
+                launches={k: v for k, v in counts.items() if v}), counts
+
+
+def independent_check_gates(fields):
+    """Every run exits 0 and checks every instance of CHECK_ROWS (none
+    unconverged); every stationarity certificate holds; the double
+    integrator's cold start is in our basin; each "ours" objective within
+    CHECK_RTOL of its row in `experiments/results/<file>`. Returns each
+    row's relative difference to that file."""
+    assert fields["exit_codes"] == [0] * len(CHECK_RUNS), fields["exit_codes"]
+    rows, lines = fields["rows"], fields["lines"]
+    assert not [ln for ln in lines if "unconverged" in ln], lines
+    assert {(r["problem"], r["seed"]) for r in rows} == CHECK_ROWS, lines
+    tallies = [ln for ln in lines if "certificates held" in ln]
+    assert len(tallies) == len(CHECK_RUNS) and all(
+        t.split()[0].split("/")[0] == t.split()[0].split("/")[1]
+        for t in tallies), tallies
+    diffs = {}
+    for r in rows:
+        assert not r["violated"], f"independent_check: {r}"
+        ref = float(run_benchmarks.reference_results(r["problem"])[2][
+            r["seed"] - 1])
+        diffs[f"{r['problem']}/{r['seed']}"] = abs(r["ours"] - ref) / abs(ref)
+    assert max(diffs.values()) <= CHECK_RTOL, diffs
+    di = [r for r in rows if r["problem"] == "double_integrator"]
+    assert di[0]["cold"] is not None and di[0]["same"], di
+    return diffs
+
+
+def residue_levers_phase(device):
+    """`residue_levers` with LEVERS on each seed of LEVER_SEEDS (chunks of
+    50, 1000 iterations, on `device`): per (seed, lever) the script's
+    lines, solved, seconds, whether the iterates are finite, and the
+    launch counts. Returns (fields, counts by (seed, lever))."""
+    fields, counts = {}, {}
+    for seed in LEVER_SEEDS:
+        data = residue_levers.instances(seed, device)
+        for lever in LEVERS:
+            key = f"{seed}/{lever}"
+            reset_counts()
+            sol, wall = residue_levers.solve_lever(lever, data, 1000, device)
+            counts[key] = read_counts()
+            fields[key] = dict(
+                instances=len(data[0]), solved=int(sol.converged.sum()),
+                seconds=wall, finite=all_finite(sol),
+                lines=residue_levers.report(lever, data[0], sol, wall),
+                launches={k: v for k, v in counts[key].items() if v})
+    return fields, counts
+
+
+def profile_phase(device):
+    """`profile_iteration.profile` on `device` with PROFILE_REPS
+    repetitions: ms and finiteness per piece, the launch counts. Returns
+    (fields, counts)."""
+    reset_counts()
+    out = profile_iteration.profile(device, PROFILE_REPS)
+    counts = read_counts()
+    return dict(reps=PROFILE_REPS, ms={k: v[0] for k, v in out.items()},
+                finite={k: v[1] for k, v in out.items()},
+                launches={k: v for k, v in counts.items() if v}), counts
+
+
 # ---- the six further benchmark models: campaign and kernel checks ---------
 
 # the six further models (modules), whose kernels the script checks on
@@ -1352,10 +1483,17 @@ def beside_job(job, device):
     """One job of a process beside the main one: a campaign solve (model,
     search), `residue_solves` ("residue", None), or `serve_phase` or
     `parallel_solves` on the main batch's first lanes ("serve" or
-    "parallel_solves", (batch, seed))."""
+    "parallel_solves", (batch, seed)), or a phase of the experiment layer
+    ("independent_check", "residue_levers", "profile_iteration", None)."""
     kind, arg = job
     if kind == "residue":
         return residue_solves(concar.problem(), MIXED_ITERATIONS, device)
+    if kind == "independent_check":
+        return independent_check_phase(device)
+    if kind == "residue_levers":
+        return residue_levers_phase(device)
+    if kind == "profile_iteration":
+        return profile_phase(device)
     if kind == "serve":
         theta, bounds, x1, u0 = concar_batch(arg[0], torch.float64, device,
                                              arg[1])
@@ -2698,7 +2836,7 @@ def main():
          for d in (dims_c, dims_d, dims_t, *dims_ldl)]
         + [backward_cuda.start_build(*d.values(), verbose=True,
                                      inertia="bk")
-           for d in dims_bk.values()]
+           for d in (*dims_bk.values(), dims_c)]
         + [forward_cuda.start_build(p, verbose=True)
            for p in (prob, di, tiny, *more.values())]
         + [probe_chain.start_build(verbose=True)])
@@ -2708,7 +2846,7 @@ def main():
         print("\n".join(logs.values()), flush=True)
     geometry = {}
     for inertia, dims in (("ldl", (dims_c, dims_d, dims_t, *dims_ldl)),
-                          ("bk", tuple(dims_bk.values()))):
+                          ("bk", (*dims_bk.values(), dims_c))):
         for d in dims:
             geo = launch_geometry(**d, inertia=inertia)
             key = "{}nx{nx}_nu{nu}_nc{nc}".format(
@@ -2932,6 +3070,28 @@ def main():
                    "ipddp2tpu/backward.py:219 (XLA scan branch, no Pallas "
                    "kernel)", per_model["acrobot"], per_model["cartpole"],
                    per_model["pushing"], *crafted_bk.values())
+    # the bk sweep at concar's m = 14, the shape of the `bk` lever of
+    # `residue_levers`: mid-solve states of the 24 residue instances and
+    # the crafted lanes at concar's dimensions, against the plain version
+    t0 = time.perf_counter()
+    mid_r = residue_mid_state(prob, dev)
+    for dtype in (torch.float64, torch.float32):
+        kname = f"backward_sweep_bk_{sfx[dtype]}"
+        args = model_inputs(prob, *mid_r, dtype)
+        f = check_bk(f"{kname}/concar_m14", args, dims_c, atol, 10)
+        f["crafted"] = check_crafted_bk(f"{kname}/crafted/concar", dims_c,
+                                        dtype, dev, atol)
+        emit("kernels", name=kname, dtype=str(dtype), model="concar", m=14,
+             batch=args[11].shape[0], T=prob.T,
+             mid_state_seconds=time.perf_counter() - t0, **f)
+        row = by_name[kname]
+        row["concar_m14"] = {k: f[k] for k in (
+            "ms", "ms_eager", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "max_rel_err")}
+        row["max_abs_err"] = max(row["max_abs_err"], f["max_abs_err"],
+                                 f["crafted"]["max_abs_err"])
+        row["max_rel_err"] = max(row["max_rel_err"], f["max_rel_err"],
+                                 f["crafted"]["max_rel_err"])
     # the LDL^T instantiations of the smooth models' dimensions
     ldl_models = {}
     for dtype in (torch.float64, torch.float32):
@@ -3131,18 +3291,24 @@ def main():
 
     # ---- the paths solved in further processes beside this one ---------
     # Every model's campaign batch is solved in one of three further
-    # processes on the card (`campaign_beside`, the groups of BESIDE), and
-    # `serve`, `residue` and `parallel_solves` each in one more; meanwhile
+    # processes on the card (`campaign_beside`, the groups of BESIDE),
+    # `serve`, `residue`, `parallel_solves` and `independent_check` each in
+    # one more, `residue_levers` and `profile_iteration` in one; meanwhile
     # this one runs `facade`, acrobot's float32 smoke, `mixed_rescue`, the
     # four older paths and `parallel_dist`. The lines
     # of the further processes come after those: serve, residue,
-    # parallel_solves, the campaign in CAMPAIGN_LINES' order.
+    # parallel_solves, the campaign in CAMPAIGN_LINES' order, then the
+    # experiment layer's.
     bk64, bk32 = "backward_sweep_bk_f64", "backward_sweep_bk_f32"
     campaign_launches = {}
     besides = []
     serve_job = ("serve", (a.batch, a.seed))
     paths_job = ("parallel_solves", (a.batch, a.seed))
-    groups = BESIDE + ((serve_job,), (("residue", None),), (paths_job,))
+    check_job = ("independent_check", None)
+    levers_job, profile_job = ("residue_levers", None), ("profile_iteration",
+                                                         None)
+    groups = BESIDE + ((serve_job,), (("residue", None),), (paths_job,),
+                       (check_job,), (levers_job, profile_job))
     try:
         for jobs in groups:
             besides.append(start_beside(jobs))
@@ -3282,8 +3448,8 @@ def main():
                 "from lockstep"
 
         # ---- residue: the round-5 residue instances in native f64 ------
-        fields, finite = done[("residue", None)]
-        emit("residue", **fields)
+        residue_fields, finite = done[("residue", None)]
+        emit("residue", **residue_fields)
         assert finite
 
         # ---- parallel_solves: full solves in the parallel mode -----------
@@ -3314,6 +3480,37 @@ def main():
                 record(f"campaign/{name}{suffix}", counts, names)
                 for k, v in counts.items():
                     campaign_launches[k] = campaign_launches.get(k, 0) + v
+
+        # ---- independent_check: SLSQP on the port's optima --------------
+        fields, counts = done[check_job]
+        diffs = independent_check_gates(fields)
+        emit("independent_check", runs=[" ".join(r) for r in CHECK_RUNS],
+             ours_against_results_file=diffs, tolerance=CHECK_RTOL,
+             **fields)
+        record("independent_check", counts,
+               ("backward_sweep_f64", "backward_sweep_bk_f64"))
+
+        # ---- residue_levers: base and bk on the residue instances -------
+        fields, counts = done[levers_job]
+        by_seed = {seed: sum(lane["converged"] for lane in
+                             residue_fields["f64"]["lanes"]
+                             if lane["seed"] == seed)
+                   for seed in LEVER_SEEDS}
+        emit("residue_levers", levers=list(LEVERS), **fields,
+             residue_phase_f64_solved=by_seed)
+        for key, f in fields.items():
+            assert f["finite"], f"residue_levers {key}: non-finite iterates"
+        for seed in LEVER_SEEDS:
+            record(f"residue_levers/{seed}/bk", counts[f"{seed}/bk"],
+                   (bk64,))
+            record(f"residue_levers/{seed}/base", counts[f"{seed}/base"],
+                   ("backward_sweep_f64",))
+
+        # ---- profile_iteration: one iteration's pieces, B = 1 ------------
+        fields, counts = done[profile_job]
+        emit("profile_iteration", batch=1, T=prob.T, **fields)
+        assert all(fields["finite"].values()), fields["finite"]
+        record("profile_iteration", counts, ("backward_sweep_f64",))
     finally:
         for beside in besides:
             stop_beside(beside)

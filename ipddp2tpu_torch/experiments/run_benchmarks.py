@@ -2,21 +2,26 @@
 
 Counterpart of `experiments/run_benchmarks.py`. The JAX script draws each
 model's instances with `jax.random` (seed 1 first) and writes them to
-`experiments/params/`; this script solves THOSE committed instances, read
-by each model's `from_params`, in one `solve_batch` per model under the JAX
+`experiments/params/`; this script solves THOSE committed instances (100 a
+model), read by each model's `from_params`, and past them as many more as
+`--seeds` asks, drawn by the model's `random_instances` from
+`torch.Generator().manual_seed(--key)` (the JAX generator's ranges, not its
+numbers). It solves them in one `solve_batch` per model under the JAX
 script's options (float64, `max_iterations=1000`, tolerance `--tol`,
-`inertia_method=--inertia`), writes the per-seed table in the JAX results
-format
+`inertia_method=--inertia`), writes the instances to
+`<out>/params/<file>` in the JAX layout (`repr(float)`, read back bit for
+bit by `from_params`) and the per-seed table in the JAX results format
 
      seed  iterations  status     objective           primal
 
-to `--out` (never to `experiments/results/`), and prints a comparison with
+to `<out>/<file>` (never into `experiments/`), and prints a comparison with
 the JAX campaign's table `experiments/results/<file>`: instances solved,
-median and largest iterations, objectives within 1e-4.
+median and largest iterations, objectives within 1e-4 (on the rows that
+table has).
 
 Usage:
     python3 -m ipddp2tpu_torch.experiments.run_benchmarks [problem ...]
-        [--seeds N] [--tol 1e-7] [--inertia auto|ldl|eigh|bk]
+        [--seeds N] [--key K] [--tol 1e-7] [--inertia auto|ldl|eigh|bk]
         [--search backtracking|hybrid] [--device cuda|cpu]
         [--out DIR] [--suffix S]
 
@@ -101,28 +106,83 @@ def golden_of(name, mod):
     return mod.SEED1_GOLDEN_OBJECTIVE, mod.SEED1_GOLDEN_ITERATIONS
 
 
+def params_of(name, drawn):
+    """The rows (float64 `[B, columns]`, the layout of
+    `experiments/params/<file>` that `from_params` reads) of instances drawn
+    by the model's `random_instances`."""
+    mod, _ = MODELS[name]
+    if name in ("concar", "concar_quad"):
+        th, f_lim, tau_lim, x1 = drawn
+        return torch.cat([f_lim[:, None], tau_lim[:, None],
+                          th.obstacles.flatten(1), x1], dim=1)
+    if name == "quadrotor":
+        th, x1 = drawn
+        return torch.cat([th.goal, x1[:, :3]], dim=1)
+    if name == "cartpole_swingup":
+        return drawn[:, :2]
+    th = drawn
+    if name == "acrobot":
+        fixed = lambda v: torch.full_like(th.m1, v)
+        return torch.stack([th.m1, fixed(mod.I1), th.l1, fixed(mod.LC1),
+                            th.m2, fixed(mod.I2), th.l2, fixed(mod.LC2)],
+                           dim=1)
+    if name == "cartpole":
+        return torch.cat([torch.stack([th.mc, th.mp, th.l], dim=1),
+                          th.friction], dim=1)
+    return torch.cat([torch.stack([th.zx, th.zy, th.c, th.mu_fric], dim=1),
+                      th.obstacle], dim=1)
+
+
+def instance_rows(name, seeds=SEEDS, key=1):
+    """The params rows of a model's first `seeds` instances, float64
+    `[seeds, columns]`: the committed rows of `experiments/params` (seed 1
+    first, the JAX campaign's instances bit for bit), then, past them, rows
+    drawn by the model's `random_instances` from
+    `torch.Generator().manual_seed(key)`."""
+    mod, _ = MODELS[name]
+    rows = torch.as_tensor(convert.params_rows(mod.PARAMS))[:seeds]
+    extra = seeds - rows.shape[0]
+    if extra > 0:
+        gen = torch.Generator().manual_seed(key)
+        rows = torch.cat([rows, params_of(
+            name, mod.random_instances(extra, gen))])
+    return rows
+
+
 def instances(name, seeds=SEEDS, dtype=torch.float64, device=None,
-              golden=False):
+              golden=False, key=1):
     """(theta, bounds, x1, u0) of the campaign's first `seeds` instances
-    (experiments/params, seed 1 first); with `golden`, one more lane: the
-    golden anchor's instance. The double integrator has one instance."""
+    (`instance_rows`); with `golden`, one more lane: the golden anchor's
+    instance. The double integrator has one instance, which every lane
+    holds."""
     mod, _ = MODELS[name]
     if name == "double_integrator":
+        n = seeds + int(golden)
         b = mod.bounds(dtype, device)
-        return (None, Bounds(b.lower[None], b.upper[None]),
-                mod.initial_state(dtype, device)[None],
-                mod.initial_controls(dtype, device)[None])
-    rows = convert.params_rows(mod.PARAMS)[:seeds].tolist()
+        x1 = mod.initial_state(dtype, device)
+        u0 = mod.initial_controls(dtype, device)
+        return (None, Bounds(*(v.expand((n,) + v.shape) for v in b)),
+                x1.expand(n, *x1.shape), u0.expand(n, *u0.shape))
+    rows = instance_rows(name, seeds, key)
     if golden:
-        rows.append(golden_row(name, mod))
+        rows = torch.cat([rows, torch.tensor([golden_row(name, mod)],
+                                             dtype=torch.float64)])
     return mod.from_params(rows, dtype, device)
 
 
-def solve(name, opts, seeds=SEEDS, device=None, golden=False):
+def solve(name, opts, seeds=SEEDS, device=None, golden=False, key=1):
     """One model's campaign batch through `solve_batch`."""
-    th, b, x, u = instances(name, seeds, device=device, golden=golden)
+    th, b, x, u = instances(name, seeds, device=device, golden=golden,
+                            key=key)
     return solve_batch(MODELS[name][0].problem(), b, x, u, theta=th,
                        options=opts, device=device)
+
+
+def write_params(path, rows):
+    """Params rows to `path`, one instance a line, each value as
+    `repr(float)` (the JAX script's `write_params`)."""
+    path.write_text("".join(" ".join(repr(float(v)) for v in row) + "\n"
+                            for row in rows.tolist()))
 
 
 def results_table(sol, n) -> str:
@@ -169,13 +229,15 @@ def on_golden(name, objective, iterations, converged, golden):
 
 def compare(name, sol, n):
     """What a campaign solve did on its first `n` lanes, beside the JAX
-    campaign's results file, and (if the batch has one more lane) its
-    golden lane."""
+    campaign's results file (on the rows it has), and (if the batch has one
+    more lane) its golden lane."""
     mod, stem = MODELS[name]
     conv, iters, obj = (sol.converged[:n].cpu(), sol.iterations[:n].cpu(),
                         sol.objective[:n].cpu())
     r_conv, r_iters, r_obj = reference_results(stem, n)
-    match = conv & r_conv & ((obj - r_obj).abs() <= 1e-4 * r_obj.abs())
+    m = r_conv.shape[0]
+    match = conv[:m] & r_conv & ((obj[:m] - r_obj).abs()
+                                 <= 1e-4 * r_obj.abs())
     med, r_med = median(iters), median(r_iters)
     fields = dict(
         model=name, instances=n, solved=int(conv.sum()),
@@ -193,8 +255,9 @@ def compare(name, sol, n):
         status_counts={str(k): int((sol.status[:n] == k).sum())
                        for k in sol.status[:n].unique().tolist()},
         # each unconverged instance: seed row, status, iterations, and
-        # whether the JAX campaign converged it
-        unsolved=[[i, int(sol.status[i]), int(iters[i]), bool(r_conv[i])]
+        # whether the JAX campaign converged it (None past its rows)
+        unsolved=[[i, int(sol.status[i]), int(iters[i]),
+                   bool(r_conv[i]) if i < m else None]
                   for i in torch.nonzero(~conv)[:, 0].tolist()])
     if sol.converged.shape[0] > n:
         g = (float(sol.objective[n]), int(sol.iterations[n]),
@@ -211,6 +274,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("problems", nargs="*", default=list(MODELS))
     ap.add_argument("--seeds", type=int, default=SEEDS)
+    ap.add_argument("--key", type=int, default=1,
+                    help="seed of the generator of the instances past the "
+                         "committed ones")
     ap.add_argument("--tol", type=float, default=1e-7)
     ap.add_argument("--inertia", default="auto",
                     choices=["auto", "ldl", "eigh", "bk"])
@@ -230,13 +296,20 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     opts = options(args.tol, args.inertia, args.search)
     for name in args.problems:
+        stem = MODELS[name][1]
+        # the JAX script solves the double integrator's one instance once
+        seeds = 1 if name == "double_integrator" else args.seeds
+        if name != "double_integrator":
+            (out / "params").mkdir(exist_ok=True)
+            write_params(out / "params" / f"{stem}.txt",
+                         instance_rows(name, seeds, args.key))
         t0 = time.perf_counter()
-        sol = solve(name, opts, args.seeds, device)
+        sol = solve(name, opts, seeds, device, key=args.key)
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = sol.converged.shape[0]
-        path = out / f"{MODELS[name][1]}{args.suffix}.txt"
+        path = out / f"{stem}{args.suffix}.txt"
         path.write_text(results_table(sol, n))
         f = compare(name, sol, n)
         print(f"{name}: {f['solved']}/{n} solved (JAX {f['reference_solved']}"

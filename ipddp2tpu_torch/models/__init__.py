@@ -12,8 +12,18 @@
 
 Every module but double_integrator has `from_params(rows)`, which turns rows
 of `experiments/params/<PARAMS>` (read with `convert.params_rows`) into
-batched (theta, bounds, x1, u0).
+batched (theta, bounds, x1, u0), and `random_instances(batch, generator)`,
+which draws instances with the ranges of the JAX package's
+`random_instance` (concar_quad: concar's).
 """
+
+import torch
 
 __all__ = ["acrobot", "cartpole", "cartpole_swingup", "concar",
            "concar_quad", "double_integrator", "pushing", "quadrotor"]
+
+
+def uniform_in(u, minval, maxval):
+    """Unit uniforms `u` taken to [minval, maxval) as `jax.random.uniform`
+    applies its `minval` / `maxval` to its own unit draws."""
+    return torch.clamp_min(u * (maxval - minval) + minval, minval)

@@ -178,6 +178,29 @@ def from_params(rows, dtype=torch.float64, device=None):
             initial_controls(dtype, device).expand(B, T, NU))
 
 
+def instance_from_draws(u):
+    """The instances of unit uniforms `u` [B, 4] (the draws of m1, l1, m2,
+    l2 in that order), as the JAX package's `random_instance` maps its
+    draws (reference: experiments/ipddp2/acrobot_contact.jl:39-48): each
+    parameter 0.9 + 0.2 u. Returns Theta of [B] tensors."""
+    r = lambda i: 0.9 + 0.2 * u[:, i]
+    return Theta(m1=r(0), l1=r(1), m2=r(2), l2=r(3))
+
+
+def random_instances(batch: int, generator: torch.Generator,
+                     dtype=torch.float64, device=None):
+    """`batch` random instances with the ranges of the JAX package's
+    `random_instance`: float64 draws on the generator's device, mapped by
+    `instance_from_draws` and moved to `device`. Returns Theta of [B]
+    tensors.
+    The port does not reimplement JAX's PRNG: the instances have the JAX
+    generator's ranges, not its numbers."""
+    u = torch.rand((batch, 4), generator=generator, dtype=torch.float64,
+                   device=generator.device)
+    th = instance_from_draws(u)
+    return Theta(*(a.to(dtype=dtype, device=device) for a in th))
+
+
 # Reference seed-1 parameters (reference:
 # experiments/ipddp2/params/acrobot_contact.txt line 1).
 SEED1_THETA = dict(m1=0.9146732708938586, l1=0.9698482979114372,

@@ -173,6 +173,30 @@ def from_params(rows, dtype=torch.float64, device=None):
             initial_controls(dtype, device).expand(B, T, NU))
 
 
+def instance_from_draws(u):
+    """The instances of unit uniforms `u` [B, 5] (the draws of mc, mp, l and
+    the two friction coefficients in that order), as the JAX package's
+    `random_instance` maps its draws (reference:
+    experiments/ipddp2/cartpole_friction.jl:37-42). Returns Theta of [B]
+    tensors (friction [B, 2])."""
+    return Theta(mc=0.9 + 0.2 * u[:, 0], mp=0.15 + 0.1 * u[:, 1],
+                 l=0.45 + 0.1 * u[:, 2],
+                 friction=0.05 + 0.1 * u[:, 3:5])
+
+
+def random_instances(batch: int, generator: torch.Generator,
+                     dtype=torch.float64, device=None):
+    """`batch` random instances with the ranges of the JAX package's
+    `random_instance`: float64 draws on the generator's device, mapped by
+    `instance_from_draws` and moved to `device`. Returns Theta.
+    The port does not reimplement JAX's PRNG: the instances have the JAX
+    generator's ranges, not its numbers."""
+    u = torch.rand((batch, 5), generator=generator, dtype=torch.float64,
+                   device=generator.device)
+    th = instance_from_draws(u)
+    return Theta(*(a.to(dtype=dtype, device=device) for a in th))
+
+
 # Reference seed-1 parameters (reference:
 # experiments/ipddp2/params/cartpole_friction.txt line 1).
 SEED1_THETA = dict(mc=0.9146732708938586, mp=0.18492414895571863,

@@ -20,6 +20,7 @@ import math
 import torch
 
 from ..problem import Bounds, Problem, uniform_bounds
+from . import uniform_in
 
 NX, NU, NC = 4, 1, 0
 ANCHOR_OBJECTIVE = 0.17506381040839103
@@ -77,6 +78,28 @@ def initial_state(dtype=torch.float64, device=None):
 
 def initial_controls(dtype=torch.float64, device=None):
     return torch.full((T, NU), 0.01, dtype=dtype, device=device)
+
+
+def instance_from_draws(u):
+    """The initial states of unit uniforms `u` [B, 2], as the JAX package's
+    `random_instance` maps its draws: cart position 0.5 U(-1, 1), pole
+    angle 0.3 U(-1, 1), velocities zero. Returns x1 [B, NX]."""
+    x1 = u.new_zeros((u.shape[0], NX))
+    x1[:, 0] = 0.5 * uniform_in(u[:, 0], -1.0, 1.0)
+    x1[:, 1] = 0.3 * uniform_in(u[:, 1], -1.0, 1.0)
+    return x1
+
+
+def random_instances(batch: int, generator: torch.Generator,
+                     dtype=torch.float64, device=None):
+    """`batch` random initial states with the ranges of the JAX package's
+    `random_instance`: float64 draws on the generator's device, mapped by
+    `instance_from_draws` and moved to `device`. Returns x1 [B, NX].
+    The port does not reimplement JAX's PRNG: the instances have the JAX
+    generator's ranges, not its numbers."""
+    u = torch.rand((batch, 2), generator=generator, dtype=torch.float64,
+                   device=generator.device)
+    return instance_from_draws(u).to(dtype=dtype, device=device)
 
 
 def from_params(rows, dtype=torch.float64, device=None):

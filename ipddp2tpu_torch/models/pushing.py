@@ -38,6 +38,20 @@ X_GOAL = (0.3, 0.4, 1.5 * math.pi, 0.0)
 PARAMS = "pushing_1_obs.txt"  # experiments/params: zx zy c mu_fric obstacle(3)
 
 
+# the reference's block-parameter table (zx, zy, c)
+BLOCK_PARAMS = (
+    (0.07, 0.12, 0.03711),
+    (0.06, 0.12, 0.0355938),
+    (0.08, 0.12, 0.0387237),
+    (0.07, 0.13, 0.0393039),
+    (0.06, 0.13, 0.0378424),
+    (0.08, 0.13, 0.0366212),
+    (0.07, 0.11, 0.0349493),
+    (0.06, 0.11, 0.0333738),
+    (0.08, 0.11, 0.0408633),
+)
+
+
 class Theta(NamedTuple):
     zx: torch.Tensor          # block x-dimension
     zy: torch.Tensor          # block y-dimension
@@ -127,6 +141,39 @@ def from_params(rows, dtype=torch.float64, device=None):
             Bounds(*(v.expand((B,) + v.shape) for v in b)),
             torch.zeros((B, NX), dtype=dtype, device=device),
             initial_controls(dtype, device).expand(B, T, NU))
+
+
+def instance_from_draws(block, u_obstacle, u_mu):
+    """The instances of block indices `block` [B] (into BLOCK_PARAMS) and
+    unit uniforms `u_obstacle` [B, 3] and `u_mu` [B], as the JAX package's
+    `random_instance` maps its draws (reference:
+    experiments/ipddp2/pushing_1_obs.jl:39-60). Returns Theta of [B]
+    tensors (obstacle [B, 3])."""
+    dtype, dev = u_obstacle.dtype, u_obstacle.device
+    zx, zy, c = torch.tensor(BLOCK_PARAMS, dtype=dtype,
+                             device=dev)[block].unbind(-1)
+    obstacle = (torch.tensor([0.2, 0.2, 0.05], dtype=dtype, device=dev)
+                + torch.tensor([0.3, 0.1, 0.02], dtype=dtype, device=dev)
+                * (u_obstacle - 0.5))
+    mu_fric = 0.2 + 0.1 * (u_mu - 0.5)
+    return Theta(zx=zx, zy=zy, c=c, mu_fric=mu_fric, obstacle=obstacle)
+
+
+def random_instances(batch: int, generator: torch.Generator,
+                     dtype=torch.float64, device=None):
+    """`batch` random instances with the ranges of the JAX package's
+    `random_instance`: the block index and float64 draws on the generator's
+    device, mapped by `instance_from_draws` and moved to `device`. Returns
+    Theta.
+    The port does not reimplement JAX's PRNG: the instances have the JAX
+    generator's ranges, not its numbers."""
+    gdev = generator.device
+    block = torch.randint(0, len(BLOCK_PARAMS), (batch,),
+                          generator=generator, device=gdev)
+    rand = lambda *shape: torch.rand(shape, generator=generator,
+                                     dtype=torch.float64, device=gdev)
+    th = instance_from_draws(block, rand(batch, 3), rand(batch))
+    return Theta(*(a.to(dtype=dtype, device=device) for a in th))
 
 
 # Reference seed-1 parameters (reference:

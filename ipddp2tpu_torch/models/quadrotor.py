@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..problem import Bounds, Problem, uniform_bounds
+from . import uniform_in
 
 NX, NU, NC = 12, 4, 0
 ANCHOR_OBJECTIVE = 0.0029196425180430595
@@ -118,6 +119,33 @@ def default_instance(dtype=torch.float64, device=None):
     """The anchor's instance: (Theta(goal [3]), x1 [NX])."""
     return (Theta(goal=torch.tensor(GOAL, dtype=dtype, device=device)),
             initial_state(dtype, device))
+
+
+def instance_from_draws(u_goal, u_x1):
+    """The instances of unit uniforms `u_goal` [B, 3] and `u_x1` [B, 3], as
+    the JAX package's `random_instance` maps its draws: the goal is GOAL +
+    0.5 U(-1, 1), the initial position 0.2 U(-1, 1), the rest of x1 zero.
+    Returns (Theta(goal [B, 3]), x1 [B, NX])."""
+    goal = (torch.tensor(GOAL, dtype=u_goal.dtype, device=u_goal.device)
+            + 0.5 * uniform_in(u_goal, -1.0, 1.0))
+    x1 = u_x1.new_zeros((u_x1.shape[0], NX))
+    x1[:, :3] = 0.2 * uniform_in(u_x1, -1.0, 1.0)
+    return Theta(goal=goal), x1
+
+
+def random_instances(batch: int, generator: torch.Generator,
+                     dtype=torch.float64, device=None):
+    """`batch` random instances with the ranges of the JAX package's
+    `random_instance`: float64 draws on the generator's device, mapped by
+    `instance_from_draws` and moved to `device`. Returns (Theta(goal
+    [B, 3]), x1 [B, NX]).
+    The port does not reimplement JAX's PRNG: the instances have the JAX
+    generator's ranges, not its numbers."""
+    rand = lambda: torch.rand((batch, 3), generator=generator,
+                              dtype=torch.float64, device=generator.device)
+    th, x1 = instance_from_draws(rand(), rand())
+    to = lambda a: a.to(dtype=dtype, device=device)
+    return Theta(goal=to(th.goal)), to(x1)
 
 
 def from_params(rows, dtype=torch.float64, device=None):

@@ -37,7 +37,9 @@ def test_port_files_are_found():
             "acrobot.py", "cartpole.py", "pushing.py", "solver.py",
             "serve.py", "printing.py", "checkpoint.py",
             "profiling.py", "priccati.py", "timeshard.py", "mesh.py",
-            "multihost.py", "run_benchmarks.py"} <= names
+            "multihost.py", "run_benchmarks.py", "independent_check.py",
+            "compare_results.py", "slsqp_table.py", "residue_levers.py",
+            "profile_iteration.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -170,3 +172,8 @@ def test_default_device_raises_without_a_gpu():
         initialize_distributed(world_size=2, rank=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_benchmarks.main(["double_integrator"])
+    from ipddp2tpu_torch.experiments import independent_check
+    from ipddp2tpu_torch.scripts import profile_iteration, residue_levers
+    for script in (independent_check, residue_levers, profile_iteration):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main([])
