@@ -118,6 +118,30 @@ only. Phases, each printing one JSON line:
              card: ms per piece of one iteration on concar's seed-1
              iterate (B = 1, T = 100, CUDA events, 20 repetitions); fails
              on a non-finite piece or K2 not launched;
+  trajectories  (in a further process) the solving half of
+             `ipddp2tpu_torch.experiments.plot_trajectories`: the seed-1
+             solves of concar, cartpole, acrobot and the quadrotor (its
+             default instance; pushing's is left out for the run's time)
+             at B = 1, their arrays written to
+             `smoke_out/trajectories/<stem>.npz`; each beside its golden
+             anchor and row 1 of the JAX results file; fails unless every
+             solve converged, is finite and launched its sweep kernel (K2,
+             or the bk sweep on the contact models), and concar's lies on
+             its anchor (99 / 4.46466505, the golden rule);
+  residue_levers_untried  (eigh in a further process alone, the other
+             three with `trajectories` and `flops`) the levers refine3,
+             eigh, resets and qn on seed 1002's 9 residue instances, each
+             beside `residue_levers`' base; fails on
+             non-finite iterates, refine3 or resets solving fewer than 9,
+             or a sweep kernel launched under eigh (its route is the plain
+             sweep: eigh has no kernel in either package);
+  flops      (after `phases`) `ipddp2tpu_torch.scripts.flops_analysis`'s
+             count of one concar iteration at B = 1 in float64 with the
+             speculative search (on CPU tensors, in the process of
+             `trajectories`), set beside `phases`' mid-solve iteration at
+             B: the achieved rate and its share of the card's FP64 peak
+             (reported, not gated); fails if an aten operation went
+             uncounted;
   residue    (in a further process, while the campaign runs) the 24
              round-5 residue instances (the
              port's data file) through the mixed solve and from scratch in
@@ -154,23 +178,37 @@ only. Phases, each printing one JSON line:
              anchor; acrobot's batch once more with the hybrid search (K3 /
              K4 inside a contact solve) and for 20 float32 iterations (the
              bk instantiation in float); fails on non-finite iterates, fewer
-             than 95 solved, or a path's kernel not launched. Right after
+             than 95 solved, or a path's kernel not launched. Each
+             backtracking batch's table is written in the JAX results format
+             to `smoke_out/campaign_tables/`. In concar's process, every
+             converged row whose objective differs from the JAX results
+             file by more than 1e-4 (relative) gets SLSQP's warm-start
+             certificate from that lane's controls
+             (`independent_check.check_instance`, `campaign_certificates`;
+             fails unless each holds);
+  distributions  `plot_distributions.summary` on those tables: fails
+             unless each problem's solved count and total equal the
+             campaign line's. Right after
              the main path the batches are solved in three further
              processes on the same card (pushing's alone; the other seven
              in two groups), `serve`, `residue`, `parallel_solves` and
-             `independent_check` each in one more and `residue_levers` with
-             `profile_iteration` in another, while this one runs
-             `facade`, acrobot's float32 smoke, `mixed_rescue`, the four
-             older paths and `parallel_dist`; the further processes' lines
-             come after those paths. The seconds of all of these are taken
-             with nine processes running;
+             `independent_check` each in one more, `residue_levers` with
+             `profile_iteration` in another, `trajectories` with three of
+             the untried levers, the FLOP count and the older paths
+             `solve_f64`, `solve_f32` and `backtrack_cuda` in another, and
+             the eigh lever in another, while this one runs `facade`,
+             acrobot's float32 smoke, `mixed_rescue`, `solve_hybrid_f32`
+             and `parallel_dist`; the further processes' lines come after
+             those paths. The seconds of all of these are taken with eleven
+             processes running;
   turns      with --turns: the flat pure-f64 solve and the mixed solve in
              turns on the same batch (pure, mixed, mixed, pure);
   solve_hybrid_f32  30 iterations of the same in float32;
-  solve_f64  the pure backtracking path (graph-replayed plain rollout,
-             sweep kernel) at 16 lanes, same gates;
-  backtrack_cuda  20 iterations of pure backtracking with the forward-trial
-             kernel as the rollout;
+  solve_f64  (in a further process, `older_paths`) the pure backtracking
+             path (graph-replayed plain rollout, sweep kernel) at 16 lanes,
+             same gates; `solve_f32` the same for 30 iterations in float32;
+  backtrack_cuda  (in the same process) 20 iterations of pure
+             backtracking with the forward-trial kernel as the rollout;
   phases     a timed split of a few mid-solve iterations into the solver's
              phases, with the backtracking and with the hybrid forward pass;
   parent_and_change  with --parent DIR (a checkout of the parent commit):
@@ -221,6 +259,7 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ipddp2tpu_torch import (Bound, Constraint, Dynamics, Objective, Solver,
@@ -262,7 +301,10 @@ from ipddp2tpu_torch.ops.profile_sweep import (CRAFTED_BK_LANES,
 from ipddp2tpu_torch.batch import batch_stats
 from ipddp2tpu_torch.parallel.priccati import backward_pass_parallel
 from ipddp2tpu_torch.problem import Bounds, batch_bounds, uniform_bounds
-from ipddp2tpu_torch.scripts import profile_iteration, residue_levers
+from ipddp2tpu_torch.scripts import (flops_analysis, profile_iteration,
+                                     residue_levers)
+from ipddp2tpu_torch.experiments import (plot_distributions,
+                                         plot_trajectories)
 from ipddp2tpu_torch.serve import solve_pool_resident
 from ipddp2tpu_torch.utils import load_state, profiling, save_state
 from ipddp2tpu_torch.solve import (SolverState, _nominal_trial, initialize,
@@ -1374,15 +1416,15 @@ def independent_check_gates(fields):
     return diffs
 
 
-def residue_levers_phase(device):
-    """`residue_levers` with LEVERS on each seed of LEVER_SEEDS (chunks of
+def residue_levers_phase(device, seeds=LEVER_SEEDS, levers=LEVERS):
+    """`residue_levers` with `levers` on each seed of `seeds` (chunks of
     50, 1000 iterations, on `device`): per (seed, lever) the script's
     lines, solved, seconds, whether the iterates are finite, and the
     launch counts. Returns (fields, counts by (seed, lever))."""
     fields, counts = {}, {}
-    for seed in LEVER_SEEDS:
+    for seed in seeds:
         data = residue_levers.instances(seed, device)
-        for lever in LEVERS:
+        for lever in levers:
             key = f"{seed}/{lever}"
             reset_counts()
             sol, wall = residue_levers.solve_lever(lever, data, 1000, device)
@@ -1405,6 +1447,228 @@ def profile_phase(device):
     return dict(reps=PROFILE_REPS, ms={k: v[0] for k, v in out.items()},
                 finite={k: v[1] for k, v in out.items()},
                 launches={k: v for k, v in counts.items() if v}), counts
+
+
+def older_paths(batch, seed, max_iterations, device):
+    """The three older paths on the first SMALL_BATCH lanes of the main
+    batch (`concar_batch(batch, ..., seed)`): `solve_f64` (pure
+    backtracking, the graph-replayed plain rollout, the sweep kernel; the
+    golden gates), `solve_f32` (the same path in float32, 30 iterations)
+    and `backtrack_cuda` (20 iterations with the forward-trial kernel as the
+    rollout, against the graph rollout). Returns {path: (fields, launch
+    counts)}; the kernels each must launch are checked by the caller."""
+    prob = concar.problem()
+    nb = min(SMALL_BATCH, batch)
+    theta, bounds, x1, u0 = concar_batch(batch, torch.float64, device, seed)
+    th_s = concar.Theta(theta.obstacles[:nb])
+    b_s = Bounds(bounds.lower[:nb], bounds.upper[:nb])
+    out = {}
+
+    # ---- solve_f64: pure backtracking, plain rollout, fewer lanes --------
+    opts64 = Options(optimality_tolerance=1e-7,
+                     max_iterations=max_iterations, backward_kernel="cuda")
+    sol_b, wall_b, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
+                                        theta=th_s, options=opts64)
+    assert counts["forward_metrics_f64"] == 0 \
+        and counts["forward_trial_f64"] == 0
+    golden_gates(sol_b, nb)
+    out["solve_f64"] = (dict(T=prob.T, **solve_fields(sol_b, nb, wall_b),
+                             sweep_launches=counts["backward_sweep_f64"]),
+                        counts)
+
+    # the same path in float32, 30 iterations
+    th32, b32, x32, u32 = concar_batch(batch, torch.float32, device, seed)
+    b32 = Bounds(*(x[:nb] for x in b32))
+    th32, x32, u32 = concar.Theta(th32.obstacles[:nb]), x32[:nb], u32[:nb]
+    opts32 = Options(optimality_tolerance=1e-7, max_iterations=30,
+                     backward_kernel="cuda")
+    p0 = initialize(prob, th32, b32, x32, u32, opts32).c_raw.abs() \
+        .flatten(1).amax(dim=1)
+    sol_b32, wall_b32, counts = timed_solve(prob, b32, x32, u32, theta=th32,
+                                            options=opts32)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (sol_b32.x, sol_b32.u, sol_b32.phi, sol_b32.zl,
+                           sol_b32.zu))
+    assert finite and sol_b32.x.dtype == torch.float32
+    assert float(sol_b32.primal_inf.median()) < float(p0.median())
+    out["solve_f32"] = (dict(
+        batch=nb, iterations=30, seconds=wall_b32, finite=finite,
+        sweep_launches=counts["backward_sweep_f32"],
+        primal_inf_initial_median=float(p0.median()),
+        primal_inf_final_median=float(sol_b32.primal_inf.median())), counts)
+
+    # ---- backtrack_cuda: K4 as the rollout of pure backtracking ----------
+    bt = Options(optimality_tolerance=1e-7, max_iterations=20,
+                 backward_kernel="cuda", forward_kernel="cuda")
+    sol_k, wall_k, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
+                                        theta=th_s, options=bt)
+    assert counts["forward_metrics_f64"] == 0
+    assert bool(torch.isfinite(sol_k.x).all())
+    ref20 = solve_batch(prob, b_s, x1[:nb], u0[:nb], theta=th_s,
+                        options=Options(optimality_tolerance=1e-7,
+                                        max_iterations=20,
+                                        backward_kernel="cuda"))
+    out["backtrack_cuda"] = (dict(
+        batch=nb, iterations=20, seconds=wall_k,
+        trial_launches=counts["forward_trial_f64"],
+        same_iteration_counts_as_graph_rollout=bool(
+            (ref20.iterations == sol_k.iterations).all()),
+        max_abs_state_difference_to_graph_rollout=float(
+            (ref20.x - sol_k.x).abs().max())), counts)
+    return out
+
+
+# the kernels each older path must launch
+OLDER_PATH_KERNELS = {"solve_f64": ("backward_sweep_f64",),
+                      "solve_f32": ("backward_sweep_f32",),
+                      "backtrack_cuda": ("backward_sweep_f64",
+                                         "forward_trial_f64")}
+
+
+# ---- the last slice: trajectories, the untried levers, the FLOP count,
+# the campaign's tables and the certificates of its off-file rows ----------
+
+# what this run writes for reading afterwards (git-ignored)
+OUT_DIR = Path(__file__).resolve().parent / "smoke_out"
+TRAJECTORY_DIR = OUT_DIR / "trajectories"
+TABLE_DIR = OUT_DIR / "campaign_tables"
+# the seed-1 solves of `plot_trajectories` that the run makes, and the
+# sweep kernel each must launch; pushing's (374 iterations, 154 s beside
+# the other processes) is left out for the run's time: the campaign solves
+# its instance as lane 100
+TRAJECTORY_KERNELS = {"concar": "backward_sweep_f64",
+                      "quadrotor": "backward_sweep_f64",
+                      "cartpole": "backward_sweep_bk_f64",
+                      "acrobot": "backward_sweep_bk_f64"}
+# the levers of `residue_levers` the card had not run, on one seed, in two
+# processes: eigh (the plain sweep, eager, the slowest by far) alone; the
+# JAX package's native-f64 record solves 9 of 9 there with refine3 and the
+# resets (docs/PERF.md, round-5 lever measurements)
+UNTRIED_GROUPS = (("refine3", "resets", "qn"), ("eigh",))
+UNTRIED_LEVERS = tuple(lever for group in UNTRIED_GROUPS for lever in group)
+UNTRIED_SEED = 1002
+LEVERS_SOLVING_ALL = ("refine3", "resets")
+SWEEP_KERNELS = ("backward_sweep_f64", "backward_sweep_f32",
+                 "backward_sweep_bk_f64", "backward_sweep_bk_f32")
+# the campaigns whose rows off the JAX results file (objective beyond this
+# relative difference) get SLSQP's warm-start certificate
+CERTIFY = ("concar",)
+OFF_FILE_RTOL = 1e-4
+
+
+def trajectories_phase(device):
+    """The solving half of `plot_trajectories` for the models of
+    TRAJECTORY_KERNELS on `device` (B = 1 each), the arrays saved under
+    TRAJECTORY_DIR: per model
+    iterations, objective, status, finiteness, seconds, launches, its
+    golden anchor (and whether it is on it, by the campaign's rule) and row
+    1 of the JAX results file. Returns (fields, counts by model)."""
+    fields, counts = {}, {}
+    for name in TRAJECTORY_KERNELS:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = plot_trajectories.trajectories(name, device)
+        torch.cuda.synchronize()
+        wall, counts[name] = time.perf_counter() - t0, read_counts()
+        path = plot_trajectories.save(data, TRAJECTORY_DIR)
+        mod, stem = run_benchmarks.MODELS[name]
+        g_obj, g_it = run_benchmarks.golden_of(name, mod)
+        its, obj = int(data["iterations"]), float(data["objective"])
+        conv = bool(data["converged"])
+        r_conv, r_its, r_obj = run_benchmarks.reference_results(stem, 1)
+        fields[name] = dict(
+            iterations=its, objective=obj, converged=conv,
+            status=int(data["status"]),
+            tolerance=plot_trajectories.options(name).optimality_tolerance,
+            finite=bool(np.isfinite(data["x"]).all()
+                        and np.isfinite(data["u"]).all()),
+            seconds=wall, npz=str(path.relative_to(OUT_DIR.parent)),
+            launches={k: v for k, v in counts[name].items() if v},
+            golden=dict(objective=g_obj, iterations=g_it,
+                        on_golden=run_benchmarks.on_golden(
+                            name, obj, its, conv, (g_obj, g_it))),
+            jax_results_row1=dict(objective=float(r_obj[0]),
+                                  iterations=int(r_its[0]),
+                                  converged=bool(r_conv[0])))
+    return fields, counts
+
+
+def trajectories_gates(fields, counts):
+    """Every solve converged, finite, and launched its sweep kernel;
+    concar's on its golden anchor."""
+    for name, f in fields.items():
+        assert f["converged"] and f["finite"], f"trajectories/{name}: {f}"
+        kernel = TRAJECTORY_KERNELS[name]
+        assert counts[name][kernel] > 0, \
+            f"trajectories/{name} missed the kernel {kernel}"
+    assert fields["concar"]["golden"]["on_golden"], fields["concar"]
+
+
+def untried_levers_gates(fields, counts, base):
+    """Finite on every lever; refine3 and the resets solve every instance;
+    the eigh lever launched no sweep kernel (its route is the plain sweep).
+    Returns each lever's solved and median k beside `base`'s."""
+    beside = {}
+    for lever in UNTRIED_LEVERS:
+        key = f"{UNTRIED_SEED}/{lever}"
+        f = fields[key]
+        assert f["finite"], f"residue_levers {key}: non-finite iterates"
+        if lever in LEVERS_SOLVING_ALL:
+            assert f["solved"] == f["instances"], \
+                f"residue_levers {key}: {f['solved']}/{f['instances']}"
+        beside[lever] = dict(solved=f["solved"], seconds=f["seconds"],
+                             base_solved=base["solved"],
+                             base_seconds=base["seconds"])
+    eigh = counts[f"{UNTRIED_SEED}/eigh"]
+    assert not any(eigh[k] for k in SWEEP_KERNELS), \
+        f"the eigh lever launched a sweep kernel: {eigh}"
+    return beside
+
+
+def flops_phase():
+    """`flops_analysis.count` of one concar iteration at B = 1 in float64
+    with the speculative search (K = 8), on CPU tensors."""
+    t0 = time.perf_counter()
+    c = flops_analysis.count(1, torch.float64, "cpu")
+    return dict(per_instance_iteration=c["flops"],
+                transcendentals=c["transcendentals"],
+                line_search_rollouts=c["trials"],
+                by_piece={k: v["flops"] for k, v in c["by_piece"].items()},
+                uncounted=c["uncounted"], T=c["T"],
+                ls_speculative=c["ls_speculative"],
+                seconds=time.perf_counter() - t0,
+                line=flops_analysis.report(c)[0])
+
+
+def off_file_certificates(name, sol, device):
+    """SLSQP's warm-start certificate (`independent_check.check_instance`,
+    no cold start) of every converged row of a campaign whose objective
+    differs from the JAX results file's beyond OFF_FILE_RTOL, warm-started
+    from that lane's controls. Returns one dict a row."""
+    mod, stem = run_benchmarks.MODELS[name]
+    n = CAMPAIGN_SEEDS
+    _, _, r_obj = run_benchmarks.reference_results(stem, n)
+    obj = sol.objective[:n].cpu()
+    off = (((obj - r_obj).abs() > OFF_FILE_RTOL * r_obj.abs())
+           & sol.converged[:n].cpu())
+    th, b, x1, u0 = run_benchmarks.instances(name, n, device=device)
+    rows = []
+    for i in torch.nonzero(off)[:, 0].tolist():
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            _, held = independent_check.check_instance(
+                f"{name} seed {i + 1}", mod.problem(),
+                Bounds(b.lower[i], b.upper[i]),
+                type(th)(*(a[i] for a in th)), x1[i], u0[i], sol.u[i],
+                maxiter=400, cold_start=False)
+        rows.append(dict(seed=i + 1, objective=float(obj[i]),
+                         jax_objective=float(r_obj[i]),
+                         iterations=int(sol.iterations[i]), held=held,
+                         seconds=time.perf_counter() - t0,
+                         line=out.getvalue().strip()))
+    return rows
 
 
 # ---- the six further benchmark models: campaign and kernel checks ---------
@@ -1476,6 +1740,14 @@ def campaign_solve(name, search, device):
     fields = dict(run_benchmarks.compare(name, sol, CAMPAIGN_SEEDS),
                   seconds=wall, launches={k: v for k, v in counts.items()
                                           if v})
+    if search == "backtracking":
+        # the JAX results format, read back by `plot_distributions`
+        TABLE_DIR.mkdir(parents=True, exist_ok=True)
+        (TABLE_DIR / f"{run_benchmarks.MODELS[name][1]}.txt").write_text(
+            run_benchmarks.results_table(sol, CAMPAIGN_SEEDS))
+        if name in CERTIFY:
+            fields["off_file_certificates"] = off_file_certificates(
+                name, sol, device)
     return fields, all_finite(sol), counts
 
 
@@ -1484,7 +1756,10 @@ def beside_job(job, device):
     search), `residue_solves` ("residue", None), or `serve_phase` or
     `parallel_solves` on the main batch's first lanes ("serve" or
     "parallel_solves", (batch, seed)), or a phase of the experiment layer
-    ("independent_check", "residue_levers", "profile_iteration", None)."""
+    ("independent_check", "residue_levers", "profile_iteration", None),
+    or of the last slice ("trajectories", None), ("untried_levers", a
+    tuple of levers), ("flops", None), or the three older paths
+    ("older_paths", (batch, seed, max_iterations))."""
     kind, arg = job
     if kind == "residue":
         return residue_solves(concar.problem(), MIXED_ITERATIONS, device)
@@ -1494,6 +1769,14 @@ def beside_job(job, device):
         return residue_levers_phase(device)
     if kind == "profile_iteration":
         return profile_phase(device)
+    if kind == "trajectories":
+        return trajectories_phase(device)
+    if kind == "untried_levers":
+        return residue_levers_phase(device, (UNTRIED_SEED,), arg)
+    if kind == "flops":
+        return flops_phase()
+    if kind == "older_paths":
+        return older_paths(*arg, device)
     if kind == "serve":
         theta, bounds, x1, u0 = concar_batch(arg[0], torch.float64, device,
                                              arg[1])
@@ -1510,7 +1793,9 @@ def beside_job(job, device):
 def campaign_beside(jobs, device, conn):
     """A further process's work: `beside_job` of each job in `jobs` on
     `device`, the list of results, or the error, sent back through
-    `conn`."""
+    `conn`. One intra-op thread: eleven processes share the host's cores,
+    and a pool of threads in each would compete for them."""
+    torch.set_num_threads(1)
     try:
         conn.send(("ok", [beside_job(job, torch.device(device))
                           for job in jobs]))
@@ -3307,8 +3592,16 @@ def main():
     check_job = ("independent_check", None)
     levers_job, profile_job = ("residue_levers", None), ("profile_iteration",
                                                          None)
+    traj_job, flops_job = ("trajectories", None), ("flops", None)
+    untried_jobs = tuple(("untried_levers", group)
+                         for group in UNTRIED_GROUPS)
+    older_job = ("older_paths", (a.batch, a.seed, a.max_iterations))
     groups = BESIDE + ((serve_job,), (("residue", None),), (paths_job,),
-                       (check_job,), (levers_job, profile_job))
+                       (check_job,), (levers_job, profile_job),
+                       (traj_job, untried_jobs[0], flops_job, older_job),
+                       untried_jobs[1:])
+    shutil.rmtree(TABLE_DIR, ignore_errors=True)    # written again below
+    campaign_solved = {}
     try:
         for jobs in groups:
             besides.append(start_beside(jobs))
@@ -3367,56 +3660,6 @@ def main():
         assert finite and sol32.x.dtype == torch.float32
         assert float(sol32.primal_inf.median()) < float(p0.median())
 
-        # ---- solve_f64: pure backtracking, plain rollout, fewer lanes --
-        nb = min(SMALL_BATCH, a.batch)
-        th_s = concar.Theta(theta.obstacles[:nb])
-        b_s = Bounds(bounds.lower[:nb], bounds.upper[:nb])
-        sol_b, wall_b, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
-                                            theta=th_s, options=opts64)
-        record("solve_f64", counts, ("backward_sweep_f64",))
-        assert counts["forward_metrics_f64"] == 0 \
-            and counts["forward_trial_f64"] == 0
-        emit("solve_f64", T=prob.T, **solve_fields(sol_b, nb, wall_b),
-             sweep_launches=counts["backward_sweep_f64"])
-        golden_gates(sol_b, nb)
-
-        # the same path in float32, 30 iterations
-        opts32 = Options(optimality_tolerance=1e-7, max_iterations=30,
-                         backward_kernel="cuda")
-        sol_b32, wall_b32, counts = timed_solve(
-            prob, Bounds(*(x[:nb] for x in b32)), x32[:nb], u32[:nb],
-            theta=concar.Theta(th32.obstacles[:nb]), options=opts32)
-        record("solve_f32", counts, ("backward_sweep_f32",))
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in (sol_b32.x, sol_b32.u, sol_b32.phi, sol_b32.zl,
-                               sol_b32.zu))
-        emit("solve_f32", batch=nb, iterations=30, seconds=wall_b32,
-             finite=finite, sweep_launches=counts["backward_sweep_f32"],
-             primal_inf_initial_median=float(p0[:nb].median()),
-             primal_inf_final_median=float(sol_b32.primal_inf.median()))
-        assert finite and sol_b32.x.dtype == torch.float32
-        assert float(sol_b32.primal_inf.median()) < float(p0[:nb].median())
-
-        # ---- backtrack_cuda: K4 as the rollout of pure backtracking ----
-        bt = Options(optimality_tolerance=1e-7, max_iterations=20,
-                     backward_kernel="cuda", forward_kernel="cuda")
-        sol_k, wall_k, counts = timed_solve(prob, b_s, x1[:nb], u0[:nb],
-                                            theta=th_s, options=bt)
-        record("backtrack_cuda", counts, ("backward_sweep_f64",
-                                          "forward_trial_f64"))
-        assert counts["forward_metrics_f64"] == 0
-        ref20 = solve_batch(prob, b_s, x1[:nb], u0[:nb], theta=th_s,
-                            options=Options(optimality_tolerance=1e-7,
-                                            max_iterations=20,
-                                            backward_kernel="cuda"))
-        same_steps = bool((ref20.iterations == sol_k.iterations).all())
-        drift = float((ref20.x - sol_k.x).abs().max())
-        emit("backtrack_cuda", batch=nb, iterations=20, seconds=wall_k,
-             trial_launches=counts["forward_trial_f64"],
-             same_iteration_counts_as_graph_rollout=same_steps,
-             max_abs_state_difference_to_graph_rollout=drift)
-        assert bool(torch.isfinite(sol_k.x).all())
-
         # ---- parallel_dist: time sharding and the sharded batch ----------
         t0 = time.perf_counter()
         one, par = one_rank_nccl(dev)
@@ -3431,6 +3674,11 @@ def main():
         done = {}
         for jobs, beside in zip(groups, besides):
             done.update(zip(jobs, finish_beside(beside)))
+
+        # ---- the three older paths, solved in a further process ---------
+        for path, (fields, counts) in done[older_job].items():
+            emit(path, **fields)
+            record(path, counts, OLDER_PATH_KERNELS[path])
 
         # ---- serve: the two pools against lockstep on 512 instances -----
         fields, pool_counts = done[serve_job]
@@ -3470,6 +3718,7 @@ def main():
                 if (name, search) not in done:
                     continue
                 fields, finite, counts = done[(name, search)]
+                certificates = fields.pop("off_file_certificates", None)
                 if search == "hybrid":
                     emit("campaign", search=search, K=K, **fields)
                 else:
@@ -3480,6 +3729,28 @@ def main():
                 record(f"campaign/{name}{suffix}", counts, names)
                 for k, v in counts.items():
                     campaign_launches[k] = campaign_launches.get(k, 0) + v
+                if search == "backtracking":
+                    campaign_solved[name] = fields["solved"]
+                if certificates is not None:
+                    # ---- SLSQP on the rows off the JAX results file ----
+                    emit("campaign_certificates", model=name,
+                         rtol=OFF_FILE_RTOL, rows=certificates)
+                    assert all(r["held"] for r in certificates), \
+                        f"campaign/{name}: a certificate failed"
+
+        # ---- distributions: the campaign's tables read back --------------
+        dist = {}
+        for stem in plot_distributions.PROBLEMS:
+            name = plot_distributions.CAMPAIGN[stem]
+            summ = plot_distributions.summary(stem, ours=TABLE_DIR)
+            dist[stem] = dict(summ, campaign_solved=campaign_solved[name])
+            ours = summ["ipddp2tpu_torch"]
+            assert (ours["solved"], ours["total"]) == (
+                campaign_solved[name], CAMPAIGN_SEEDS), \
+                f"distributions/{stem}: {ours} against the campaign's " \
+                f"{campaign_solved[name]}"
+        emit("distributions", tables=str(TABLE_DIR.relative_to(
+            OUT_DIR.parent)), problems=dist)
 
         # ---- independent_check: SLSQP on the port's optima --------------
         fields, counts = done[check_job]
@@ -3511,6 +3782,22 @@ def main():
         emit("profile_iteration", batch=1, T=prob.T, **fields)
         assert all(fields["finite"].values()), fields["finite"]
         record("profile_iteration", counts, ("backward_sweep_f64",))
+
+        # ---- trajectories: plot_trajectories' five seed-1 solves --------
+        fields, counts = done[traj_job]
+        emit("trajectories", **fields)
+        trajectories_gates(fields, counts)
+
+        # ---- the levers the card had not run --------------------------
+        fields, counts = {}, {}
+        for job in untried_jobs:
+            fields.update(done[job][0])
+            counts.update(done[job][1])
+        base = done[levers_job][0][f"{UNTRIED_SEED}/base"]
+        untried = untried_levers_gates(fields, counts, base)
+        emit("residue_levers_untried", levers=list(UNTRIED_LEVERS),
+             beside_base=untried, **fields)
+        flop_count = done[flops_job]
     finally:
         for beside in besides:
             stop_beside(beside)
@@ -3528,6 +3815,18 @@ def main():
                                    iters=5)
     emit("phases", ms_per_iteration=split, batch=a.batch, K=K,
          stepping_lanes_where_hybrid_and_backtracking_differ=differing)
+
+    # ---- flops: the count of one iteration over the phases' time --------
+    # (the count is of the plain versions at the initialized state with the
+    # speculative search; the time of a mid-solve iteration with the hybrid
+    # one: a division as the JAX package's MFU section made, nothing more)
+    it_ms = sum(split[k] for k in ("derivatives", "costate", "contraction",
+                                   "backward", "forward_hybrid"))
+    rate = flop_count["per_instance_iteration"] * a.batch / (it_ms / 1e3)
+    emit("flops", **flop_count, batch=a.batch, iteration_ms=it_ms,
+         achieved_flops_per_s=rate,
+         share_of_fp64_peak=rate / PEAK_FLOPS[torch.float64])
+    assert not flop_count["uncounted"], flop_count["uncounted"]
 
     # ---- parent_and_change: K3 of the parent commit against this tree ----
     if a.parent:

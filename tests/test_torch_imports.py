@@ -39,7 +39,9 @@ def test_port_files_are_found():
             "profiling.py", "priccati.py", "timeshard.py", "mesh.py",
             "multihost.py", "run_benchmarks.py", "independent_check.py",
             "compare_results.py", "slsqp_table.py", "residue_levers.py",
-            "profile_iteration.py"} <= names
+            "profile_iteration.py", "flops_analysis.py",
+            "plot_trajectories.py", "animate.py",
+            "plot_distributions.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -177,3 +179,11 @@ def test_default_device_raises_without_a_gpu():
     for script in (independent_check, residue_levers, profile_iteration):
         with pytest.raises(RuntimeError, match="CUDA"):
             script.main([])
+    from ipddp2tpu_torch.experiments import (animate, plot_distributions,
+                                             plot_trajectories)
+    from ipddp2tpu_torch.scripts import flops_analysis
+    for script, argv in ((flops_analysis, []),
+                         (plot_trajectories, ["--no-draw"]),
+                         (animate, []), (plot_distributions, ["--no-draw"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main(argv)
