@@ -50,7 +50,16 @@ only. Phases, each printing one JSON line:
              lanes there too; `kernels_by_model`),
              K3 / K4 with each new model's device functions in f64, timed
              (`forward_by_model`);
-  probes     the two chain probes, driven once at their size;
+  probes     the two chain probes, driven once at their size (B lanes,
+             T=100), each against its plain version and timed; both timed
+             at 100, 400 and 1600 steps (a line through the three: the
+             cost of a dependent step and the fixed cost) beside an empty
+             kernel of their launch geometry (the floor of one launch in a
+             replayed graph); P2's registers and shared memory (`-Xptxas
+             -v`) and the FP64 instructions of its step from `cuobjdump
+             -sass` (its issue floor); with --parent DIR, the parent's P2
+             against this tree's bit for bit at each length in both types,
+             in turns (parent, change, change, parent) and by steps;
   graphs     the rollout replayed from a CUDA graph equals the eager one;
   solve_hybrid_f64  the flat solve in pure f64: `solve_batch` on concar at
              its published size (T=100), B instances (lane 0 = the
@@ -321,6 +330,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 # Microbenchmarking", 2018: 4 for FMUL/FFMA, 8 for DMUL/DFMA). Taken for
 # both types, so that the probes' latency bound stays a lower bound.
 DEPENDENT_OP_CLOCKS = 4
+# ... and by type, against which P1's measured clocks a step are held: the
+# multiply chain is at its latency bound within 2x of these
+MUL_CLOCKS = {torch.float32: 4, torch.float64: 8}
+# clocks a warp's FP64 instruction holds its sub-partition's FP64 pipe (16
+# FP64 lanes a sub-partition on the H100): P2's issue floor
+FP64_CLOCKS_PER_WARP_INSTRUCTION = 2
+# the chains' lengths at which the probes are timed for their cost a step
+PROBE_STEPS = (100, 400, 1600)
 # kernel-vs-plain tolerances, relative to each tensor's scale. Sweep gains:
 # both sides do the same arithmetic in another order (and the kernel with
 # fused multiply-adds), so they differ by rounding amplified by the KKT
@@ -934,7 +951,9 @@ def check_probes(dtype, device, batch, steps, seed, sm_mhz):
     each is a chain of `steps` dependent operations (P1 a multiply, P2 the
     one multiply-add a step that carries position, heading and speed to the
     next step: the sine and cosine feed no later step), which takes at least
-    DEPENDENT_OP_CLOCKS clocks each at the SM's highest clock `sm_mhz`."""
+    DEPENDENT_OP_CLOCKS clocks each at the SM's highest clock `sm_mhz`.
+    Returns the fields, the launch counts of one counted run of both, and
+    the inputs (x0 of P1, x1 and u of P2)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     rand = lambda *s: torch.rand(s, generator=gen, dtype=torch.float64)
     c = 1.0000001
@@ -971,12 +990,149 @@ def check_probes(dtype, device, batch, steps, seed, sm_mhz):
             latency_bound_by="latency", dependent_steps=steps,
             clocks_per_step=DEPENDENT_OP_CLOCKS, sm_clock_mhz=sm_mhz)
         out[name] = fields
+    out["dynamics_chain"]["geometry"] = probe_chain.chain_geometry(
+        batch, steps, dtype)._asdict()
     # the probes' own path: one run at this size, counted
     probe_chain.reset_launch_counts()
     probe_chain.mul_chain_cuda(x0, c, steps)
     probe_chain.dynamics_chain_cuda(x1, u)
     torch.cuda.synchronize()
-    return out, dict(probe_chain.launch_counts)
+    return out, dict(probe_chain.launch_counts), (x0, x1, u)
+
+
+def step_fit(ms_by_steps, sm_mhz):
+    """The least-squares line through (steps, ms): the cost of one more
+    dependent step (ns, and clocks at `sm_mhz`) and the fixed cost."""
+    steps = np.array(list(ms_by_steps), dtype=float)
+    slope, intercept = np.polyfit(steps, np.array(list(ms_by_steps.values())),
+                                  1)
+    return dict(ms_by_steps={str(k): v for k, v in ms_by_steps.items()},
+                ns_per_step=float(slope) * 1e6,
+                clocks_per_step=float(slope) * sm_mhz * 1e3,
+                intercept_ms=float(intercept))
+
+
+def probe_steps(dtype, inputs, sm_mhz, seed):
+    """Both probes' time against their chain's length (PROBE_STEPS, graph
+    replay) with its line (`step_fit`), and the empty kernel at each
+    probe's launch geometry in the same harness: the floor of one launch.
+    P1's clocks a step are set beside the multiply's latency."""
+    x0, x1, u = inputs
+    c = 1.0000001
+    batch = u.shape[0]
+    mul = step_fit({n: graph_ms(lambda: probe_chain.mul_chain_cuda(x0, c, n),
+                                10) for n in PROBE_STEPS}, sm_mhz)
+    mul["empty_kernel_ms"] = graph_ms(lambda: probe_chain.empty_cuda(
+        -(-x0.numel() // 128), 128), 10)
+    mul["multiply_clocks"] = MUL_CLOCKS[dtype]
+    mul["within_2x_of_multiply_latency"] = (
+        mul["clocks_per_step"] <= 2 * MUL_CLOCKS[dtype])
+    # longer chains' controls drawn on the card, within +-0.5 as `u`'s
+    gen = torch.Generator(device=u.device).manual_seed(seed)
+    us = {n: u if n == u.shape[1] else torch.rand(
+        (batch, n, u.shape[2]), generator=gen, dtype=u.dtype,
+        device=u.device) - 0.5 for n in PROBE_STEPS}
+    dyn = step_fit({n: graph_ms(
+        lambda: probe_chain.dynamics_chain_cuda(x1, us[n]), 10)
+        for n in PROBE_STEPS}, sm_mhz)
+    geo = probe_chain.chain_geometry(batch, u.shape[1], dtype)
+    dyn["empty_kernel_ms"] = graph_ms(lambda: probe_chain.empty_cuda(
+        geo.blocks, geo.instances_per_block, geo.smem_bytes), 10)
+    return dict(mul_chain=mul, dynamics_chain=dyn), us
+
+
+def _opcode(ins):
+    return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+
+
+def step_instructions(lib, kernel):
+    """The FP64 instructions (opcodes D..., and conversions .F64) of one
+    step of `kernel` (the start of its mangled name) in `lib`, read from
+    `cuobjdump -sass`: the step loop is the innermost backward branch whose
+    body holds a DFMA (P2's step loop is not unrolled), counted statically
+    over every path of its body. None where the toolkit has no
+    `cuobjdump` or no such loop is found."""
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip().startswith(kernel)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    loops = []
+    for addr, ins in body:
+        m = re.search(r"\bBRA(?:\.\S+)?\s+(?:\S+,\s*)?0x([0-9a-f]+)$", ins)
+        if m and int(m.group(1), 16) < addr:
+            span = [i for a, i in body if int(m.group(1), 16) <= a <= addr]
+            if any(_opcode(i) == "DFMA" for i in span):
+                loops.append((addr - int(m.group(1), 16), span))
+    if not loops:
+        return None
+    span = min(loops, key=lambda x: x[0])[1]
+    f64 = {}
+    for i in span:
+        op = _opcode(i)
+        if (op[0] == "D" and not op.startswith("DEPBAR")) or ".F64" in op:
+            f64[op] = f64.get(op, 0) + 1
+    return dict(f64_instructions=sum(f64.values()), by_opcode=f64,
+                instructions=len(span))
+
+
+def parent_probe_library(parent_dir):
+    """P2 built from the parent checkout's `probe_chain.cu` under another
+    stem, bound with that design's interface (one thread an instance:
+    x0, u, out, B, steps, stream)."""
+    src = Path(parent_dir) / "ipddp2tpu_torch/ops/csrc/probe_chain.cu"
+    lib = ctypes.CDLL(str(build.finish(build.start(
+        "probe_chain_parent", src, depends=(
+            src.parent / "models" / "concar.cuh",
+            src.parent / "scalar_math.cuh")))))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for sfx in ("f32", "f64"):
+        f = getattr(lib, f"dynamics_chain_{sfx}")
+        f.restype, f.argtypes = i, [p, p, p, i, i, p]
+    return lib
+
+
+def parent_probe(lib, x1, us, sm_mhz):
+    """The parent's P2 against this tree's on the same inputs (`us`: the
+    controls by steps): x_T equal bit for bit at every length (asserted);
+    times in turns parent, change, change, parent at the main length; the
+    parent's time against the chain's length and its empty kernel."""
+    fn = getattr(lib, "dynamics_chain_" + (
+        "f64" if x1.dtype == torch.float64 else "f32"))
+
+    def parent(u):
+        out = torch.empty_like(x1)
+        err = fn(x1.data_ptr(), u.data_ptr(), out.data_ptr(), u.shape[0],
+                 u.shape[1], torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"parent dynamics_chain: CUDA error {err}"
+        return out
+
+    bits = torch.int64 if x1.dtype == torch.float64 else torch.int32
+    for n, u in us.items():
+        a_, b_ = parent(u), probe_chain.dynamics_chain_cuda(x1, u)
+        torch.cuda.synchronize()
+        differ = int((a_.view(bits) != b_.view(bits)).sum())
+        assert differ == 0, \
+            f"dynamics_chain {x1.dtype} T={n}: {differ} entries differ " \
+            "from the parent's"
+    u = us[PROBE_STEPS[0]]
+    turns = [dict(which=w, ms=graph_ms(
+        (lambda: parent(u)) if w == "parent"
+        else (lambda: probe_chain.dynamics_chain_cuda(x1, u)), 10))
+        for w in ("parent", "change", "change", "parent")]
+    fit = step_fit({n: graph_ms(lambda: parent(u_), 10)
+                    for n, u_ in us.items()}, sm_mhz)
+    fit["empty_kernel_ms"] = graph_ms(lambda: probe_chain.empty_cuda(
+        -(-x1.shape[0] // 128), 128), 10)
+    return dict(bit_equal_steps=list(us), turns=turns, **fit)
 
 
 def reset_counts():
@@ -3074,9 +3230,10 @@ def main():
                          "(no result line)")
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a checkout of the parent commit (its package): "
-                         "hold its sweep kernels against this tree's and "
-                         "time them in turns, and its forward-metrics "
-                         "kernel with the hybrid solve")
+                         "hold its sweep kernels and its dynamics-chain "
+                         "probe against this tree's and time them in "
+                         "turns, and its forward-metrics kernel with the "
+                         "hybrid solve")
     a = ap.parse_args()
     global LOG
     LOG = a.log
@@ -3444,11 +3601,29 @@ def main():
     # ---- probes ----------------------------------------------------------
     probe_rows = (("mul_chain", "scripts/tpu_dd_probe.py:49"),
                   ("dynamics_chain", "scripts/tpu_dd_probe.py:98"))
+    probe_lib = next(p for p in libs if p.name.startswith("probe_chain_"))
+    probe_ptxas = {k: v for k, v in build.ptxas_report(
+        logs.get(probe_lib.name, "")).items()
+        if k.startswith("dynamics_chain")}
+    step_f64 = step_instructions(probe_lib, "_Z21dynamics_chain_kernelId")
+    parent_lib = parent_probe_library(a.parent) if a.parent else None
     for dtype in (torch.float32, torch.float64):
-        fields, counts = check_probes(dtype, dev, a.batch, prob.T, a.seed + 3,
-                                      sm_mhz)
+        fields, counts, inputs = check_probes(dtype, dev, a.batch, prob.T,
+                                              a.seed + 3, sm_mhz)
+        by_steps, us = probe_steps(dtype, inputs, sm_mhz, a.seed + 3)
+        for pname in by_steps:
+            fields[pname]["by_steps"] = by_steps[pname]
+        dyn = fields["dynamics_chain"]
+        if dtype == torch.float64:
+            dyn["step_sass"] = step_f64
+            dyn["issue_floor_ms"] = None if step_f64 is None else (
+                step_f64["f64_instructions"]
+                * FP64_CLOCKS_PER_WARP_INSTRUCTION * prob.T / (sm_mhz * 1e3))
+        if parent_lib is not None:
+            dyn["parent"] = parent_probe(parent_lib, inputs[1], us, sm_mhz)
+        del us
         emit("probes", dtype=str(dtype), batch=a.batch, steps=prob.T,
-             launches=counts, **fields)
+             launches=counts, ptxas=probe_ptxas, **fields)
         for pname, replaces in probe_rows:
             kname = f"{pname}_{sfx[dtype]}"
             add_kernel(kname, "ipddp2tpu_torch/ops/csrc/probe_chain.cu",

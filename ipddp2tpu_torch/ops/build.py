@@ -117,22 +117,31 @@ def dense(a):
 def ptxas_report(log: str) -> dict:
     """Registers, spills, stack and static shared memory of every kernel in
     an `nvcc -Xptxas -v` log, by (demangled enough) kernel name, type and
-    integer template argument if any (`forward_metrics_kernel<double, 4>`)."""
-    out, name = {}, None
+    integer template argument if any (`forward_metrics_kernel<double, 4>`).
+    The properties of a device function the kernel calls (the trig
+    routines' slow path) are not the kernel's."""
+    out, name, entry, own = {}, None, None, False
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function "
-                      r"'_Z\d+(\w+?)I([fd])(?:Li(\d+)E)?E", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kind = "float" if m.group(2) == "f" else "double"
-            arg = "" if m.group(3) is None else f", {m.group(3)}"
-            name = f"{m.group(1)}<{kind}{arg}>"
-            out[name] = {}
+            entry = m.group(1)
+            m = re.match(r"_Z\d+(\w+?)I([fd])(?:Li(\d+)E)?E", entry)
+            name = None
+            if m:
+                kind = "float" if m.group(2) == "f" else "double"
+                arg = "" if m.group(3) is None else f", {m.group(3)}"
+                name = f"{m.group(1)}<{kind}{arg}>"
+                out[name] = {}
             continue
         if name is None:
             continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            own = m.group(1) == entry
+            continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if m:
+        if m and own:
             out[name].update(stack_bytes=int(m.group(1)),
                              spill_store_bytes=int(m.group(2)),
                              spill_load_bytes=int(m.group(3)))
